@@ -11,24 +11,42 @@ the run with a non-zero exit and no result line:
 
 1. Device: needs ``torch.cuda.is_available()``; prints the torch, CUDA
    and nvcc versions and the card's name and power limit.
-2. Build: compiles ``convex_dim_red_tpu_torch/csrc/simplex_qp.cu`` with
-   nvcc and prints ptxas's register and spill report.
-3. Kernel against its plain PyTorch version on the card: float32 at the
+2. Build: compiles ``convex_dim_red_tpu_torch/csrc/simplex_qp.cu`` (K1,
+   K2) and ``simplex_qp_unpacked.cu`` (K3, K4) with two nvcc processes
+   at once and prints ptxas's register, spill and shared-memory report.
+3. K1 against its plain PyTorch version on the card: float32 at the
    main path's shape (R=25 groups, n=1788 rows, k=6) with both
    projections and a masked case, float64 at (3, 257, 11) after 3
    iterations and at convergence, and k=20 and k=64; then both warm
    times at the main-path shape (CUDA events, median of 10).
-4. Small fit: the port's ``aa_fit_restarts`` in float64 on the card and
-   on the CPU (the kernel's plain version) from the same initial states.
-5. Main path: the HadISST-scale best-of-100 fit that ``bench.py`` times
+4. K2, K3 and K4 against their plain versions: K2 at (n=1788, k=6)
+   float32 with both projections; K3/K4 at (R=4, n=1788, k=96) and
+   (1, 1788, 6) float32 and a masked case, float64 at (3, 257, 100)
+   after 3 iterations and at convergence and at (1, 300, 128) (a
+   128 KiB Hessian in shared memory); then warm times of each kernel
+   and its plain version at its path's shape.
+5. Small fit: the port's ``aa_fit_restarts`` in float64 on the card and
+   on the CPU (K1 and its plain version) from the same initial states.
+6. Main path: the HadISST-scale best-of-100 fit that ``bench.py`` times
    (n=1788 x d=16384 synthetic data, k=6, weights QP capped at 25
    iterations, dictionary at 1, rel_delta_f 1e-5, rounds of 32, chunks
-   of 25), once to warm up and once timed with the kernel launch count
-   reset just before; the winner is re-costed on the host in float64 and
-   held to the JAX package's audited cost on the same data.
+   of 25), once to warm up and once timed with the launch counts reset
+   just before; the winner is re-costed on the host in float64 and held
+   to the JAX package's audited cost on the same data.
+7. Estimator at full width: ``ArchetypalAnalysis(6,
+   init='furthest_sum')`` on the same data, fitted with the default
+   weights backend (the row solver) and with ``'pallas'`` (K2 every
+   iteration), then ``transform`` (one K2 launch); the device
+   FurthestSum is held to the host one, the cost trace to the
+   watchdog, the device cost to its float64 audit and the transform's
+   cost to the fit's.
+8. k = 96 at full width: the estimator with ``'pallas'`` weights (K4)
+   and its transform, and ``aa_fit_restarts`` with 4 restarts (K3).
 
-The last two lines of standard output are a JSON object with the
-kernel's launches, error and times, and the JSON result line.
+Each path runs with every launch count set to 0 just before it and read
+just after.  The last lines of standard output are the card's name and
+power limit, a JSON object with every kernel's launches, error and
+times, and the JSON result line.
 """
 
 import json
@@ -36,6 +54,7 @@ import os
 import re
 import statistics
 import subprocess
+import threading
 import time
 
 import numpy as np
@@ -55,8 +74,24 @@ WEIGHTS_MAX_ITERATIONS = 25
 REFERENCE_AUDITED_COST = 3809.80
 AUDIT_RTOL = 1e-3
 
-KERNEL_SOURCE = "convex_dim_red_tpu_torch/csrc/simplex_qp.cu"
-KERNEL_REPLACES = "convex_dim_red_tpu/ops/pallas_qp.py:659"
+PACKED_SOURCE = "convex_dim_red_tpu_torch/csrc/simplex_qp.cu"
+UNPACKED_SOURCE = "convex_dim_red_tpu_torch/csrc/simplex_qp_unpacked.cu"
+PALLAS_QP = "convex_dim_red_tpu/ops/pallas_qp.py"
+#: The four kernels: name, source, the TPU kernel it replaces, and the
+#: wrapper's launch counter in ops/simplex_qp.py.
+KERNELS = (
+    ("K1", "simplex_qp_grouped", PACKED_SOURCE, PALLAS_QP + ":659",
+     "LAUNCHES"),
+    ("K2", "simplex_qp_packed", PACKED_SOURCE, PALLAS_QP + ":575",
+     "PACKED_LAUNCHES"),
+    ("K3", "simplex_qp_unpacked_grouped", UNPACKED_SOURCE,
+     PALLAS_QP + ":295", "GROUPED_LAUNCHES"),
+    ("K4", "simplex_qp_unpacked", UNPACKED_SOURCE, PALLAS_QP + ":223",
+     "UNPACKED_LAUNCHES"),
+)
+#: The estimator path at k = 96 (K3, K4).
+WIDE_K = 96
+DEVICE = "cuda"
 
 
 def check(ok, message):
@@ -121,47 +156,76 @@ def phase_device():
 def ptxas_report(log):
     """One line per kernel variant from nvcc's ``-Xptxas -v`` output:
     registers, spills and shared memory."""
-    lines, name = [], None
+    lines, name, spill = [], None, ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*kernelI([fd])Li(\d+)"
-                      r"ELb([01])E", line)
+        m = re.search(r"Compiling entry function '.*simplex_qp_(grouped|"
+                      r"unpacked)_kernelI([fd])Li(\d+)E(?:Lb([01])E)?",
+                      line)
         if m:
-            name = "%s KMAX %s %s" % (
-                "float" if m.group(1) == "f" else "double", m.group(2),
-                "michelot" if m.group(3) == "1" else "bisect")
+            dtype = "float" if m.group(2) == "f" else "double"
+            if m.group(1) == "grouped":
+                name = "K1/K2 %s KMAX %s %s" % (
+                    dtype, m.group(3),
+                    "michelot" if m.group(4) == "1" else "bisect")
+            else:
+                name = "K3/K4 %s NC %s" % (dtype, m.group(3))
         elif name and "spill" in line:
             spill = line.strip()
         elif name and "Used" in line:
-            lines.append("%-24s %s; %s" % (name, line.split(":", 1)[1]
+            lines.append("%-30s %s; %s" % (name, line.split(":", 1)[1]
                                            .strip(), spill))
             name = None
     return sorted(lines)
 
 
 def phase_build():
+    """Both libraries, one nvcc each, started together."""
     from convex_dim_red_tpu_torch.ops import simplex_qp
     t0 = time.perf_counter()
-    simplex_qp.load_library()
-    print("build: %.1f s" % (time.perf_counter() - t0))
-    for line in ptxas_report(simplex_qp.build_log()):
-        print("  ptxas: " + line)
+    errors = []
+
+    def build(load):
+        try:
+            load()
+        except Exception as exc:  # re-raised below, in this thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=build, args=(load,))
+               for load in (simplex_qp.load_library,
+                            simplex_qp.load_unpacked_library)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    print("build: %.1f s (two nvcc processes at once)"
+          % (time.perf_counter() - t0))
+    for source in (simplex_qp.PACKED_SOURCE, simplex_qp.UNPACKED_SOURCE):
+        for line in ptxas_report(simplex_qp.build_log(source)):
+            print("  ptxas: " + line)
 
 
-def compare_qp(name, As, Bs, X0s, tol_obj, tol_x=None, **kw):
-    """Kernel against plain version on the same card and inputs."""
+def compare_qp(name, As, Bs, X0s, tol_obj, tol_x=None, kernel=None,
+               plain=None, **kw):
+    """A kernel against its plain version on the same card and inputs
+    (default: K1).  Returns max|dx|."""
     import torch
     from convex_dim_red_tpu_torch.ops import simplex_qp
-    got = simplex_qp.quad_simplex_qp_packed_grouped(As, Bs, X0s, **kw)
+    kernel = kernel or simplex_qp.quad_simplex_qp_packed_grouped
+    plain = plain or simplex_qp.quad_simplex_qp_packed_grouped_reference
+    got = kernel(As, Bs, X0s, **kw)
     torch.cuda.synchronize()
-    want = simplex_qp.quad_simplex_qp_packed_grouped_reference(
-        As, Bs, X0s, **kw)
+    want = plain(As, Bs, X0s, **kw)
     torch.cuda.synchronize()
+    if got.ndim == 2:
+        got, want, As, Bs = got[None], want[None], As[None], Bs[None]
     f_got = qp_objective(got, As, Bs)
     f_want = qp_objective(want, As, Bs)
     gap = float(np.max(np.abs(f_got - f_want) / (1.0 + np.abs(f_want))))
     dx = float((got - want).abs().max())
     feas = float((got.double().sum(dim=2) - 1.0).abs().max())
-    print("  %-34s max|dx| %.3e  objective gap %.3e  |sum-1| %.3e"
+    print("  %-40s max|dx| %.3e  objective gap %.3e  |sum-1| %.3e"
           % (name, dx, gap, feas))
     check(bool(torch.isfinite(got).all()), name + ": non-finite output")
     check(gap <= tol_obj, "%s: objective gap %.3e > %.1e"
@@ -247,6 +311,76 @@ def phase_kernel():
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
+def _one_group(fn):
+    """A grouped plain version called on single-Hessian operands."""
+    return lambda A, B, X0, **kw: fn(A[None], B[None], X0[None], **kw)[0]
+
+
+def phase_more_kernels():
+    """K2, K3 and K4 against their plain versions, then warm times at
+    each path's shape."""
+    import torch
+    from convex_dim_red_tpu_torch.ops import simplex_qp as sq
+    dev = "cuda"
+    k2 = dict(kernel=sq.quad_simplex_qp_packed,
+              plain=_one_group(sq.quad_simplex_qp_packed_grouped_reference))
+    k3 = dict(kernel=sq.quad_simplex_qp_grouped,
+              plain=sq.quad_simplex_qp_grouped_reference)
+    k4 = dict(kernel=sq.quad_simplex_qp,
+              plain=_one_group(sq.quad_simplex_qp_grouped_reference))
+    errors = {}
+
+    single = [t[0] for t in qp_problem(4, 1, N_SAMPLES, K, torch.float32,
+                                       dev)]
+    for projection in ("michelot", "bisect"):
+        dx = compare_qp("K2 f32 1788x6 %s it=25" % projection, *single,
+                        tol_obj=1e-5, projection=projection,
+                        max_iterations=WEIGHTS_MAX_ITERATIONS, **k2)
+        errors.setdefault("K2", dx)
+        compare_qp("K2 f32 1788x6 %s it=1000" % projection, *single,
+                   tol_obj=1e-5, projection=projection,
+                   max_iterations=1000, **k2)
+
+    wide = qp_problem(5, 4, N_SAMPLES, WIDE_K, torch.float32, dev)
+    errors["K3"] = compare_qp("K3 f32 4x1788x96", *wide, tol_obj=1e-5,
+                              max_iterations=1000, **k3)
+    errors["K4"] = compare_qp("K4 f32 1788x96", *(t[0] for t in wide),
+                              tol_obj=1e-5, max_iterations=1000, **k4)
+    compare_qp("K4 f32 1788x6", *single, tol_obj=1e-5,
+               max_iterations=1000, **k4)
+    compare_qp("K3 f32 4x1788x96 masked", *wide, tol_obj=1e-5,
+               mask=np.arange(WIDE_K) % 7 != 3, max_iterations=1000, **k3)
+    f64 = qp_problem(6, 3, 257, 100, torch.float64, dev)
+    compare_qp("K3 f64 3x257x100 it=3", *f64, tol_obj=1e-12, tol_x=1e-12,
+               max_iterations=3, **k3)
+    # Converged bisection may stop a row a step apart (see phase 3).
+    compare_qp("K3 f64 3x257x100", *f64, tol_obj=1e-12, tol_x=1e-7,
+               max_iterations=1000, **k3)
+    compare_qp("K4 f64 300x128 (128 KiB shared)",
+               *(t[0] for t in qp_problem(7, 1, 300, 128, torch.float64,
+                                          dev)),
+               tol_obj=1e-12, tol_x=1e-7, max_iterations=1000, **k4)
+    torch.cuda.synchronize()
+
+    def times(kind, args, **kw):
+        return (cuda_median_ms(lambda: kind["kernel"](*args, **kw)),
+                cuda_median_ms(lambda: kind["plain"](*args, **kw)))
+
+    out = {}
+    out["K2"] = times(k2, single, max_iterations=WEIGHTS_MAX_ITERATIONS)
+    out["K3"] = times(k3, wide, max_iterations=1000)
+    out["K4"] = times(k4, [t[0] for t in wide], max_iterations=1000)
+    shapes = {"K2": "1788x6 f32, 25 iterations",
+              "K3": "4x1788x96 f32, up to 1000 iterations",
+              "K4": "1788x96 f32, up to 1000 iterations"}
+    for key, (ms, plain_ms) in out.items():
+        print("  warm time %s at %s: kernel %.4f ms, plain version %.4f "
+              "ms (CUDA events, median of 10)"
+              % (key, shapes[key], ms, plain_ms))
+    return {key: dict(max_abs_err=errors[key], ms=ms, plain_ms=plain_ms)
+            for key, (ms, plain_ms) in out.items()}
+
+
 def planted(seed, n, d, k, noise):
     rng = np.random.RandomState(seed)
     basis = rng.uniform(size=(k, d))
@@ -273,12 +407,16 @@ def phase_small_fit():
     """The same float64 fit on the card and on the CPU, from the same
     initial states (a CPU generator draws them on both).  This planted
     problem is well conditioned, so rounding differences between the
-    two stay far below the 1e-6 compared here."""
+    two stay far below the 1e-6 compared here.  ``backend='pallas'`` on
+    both: 'auto' runs the row solver on the CPU, which stops on another
+    rule."""
     import torch
     from convex_dim_red_tpu_torch import aa_fit_restarts
     X = torch.as_tensor(planted(0, 300, 40, 6, 0.01))
     kw = dict(fit_kwargs(), tolerance=1e-6, max_iterations=200,
               restart_chunk=4)
+    kw['weights_solver_kwargs'] = dict(kw['weights_solver_kwargs'],
+                                       backend='pallas')
     res = {dev: aa_fit_restarts(X.to(dev), 6,
                                 torch.Generator().manual_seed(0), 8, **kw)
            for dev in ("cuda", "cpu")}
@@ -303,6 +441,18 @@ def audit_cost_f64(result, X32):
     return 0.5 * float(np.sum(resid * resid)) / X64.shape[0]
 
 
+def reset_launches():
+    from convex_dim_red_tpu_torch.ops import simplex_qp
+    for *_, counter in KERNELS:
+        setattr(simplex_qp, counter, 0)
+
+
+def read_launches():
+    from convex_dim_red_tpu_torch.ops import simplex_qp
+    return {key: getattr(simplex_qp, counter)
+            for key, *_, counter in KERNELS}
+
+
 def phase_main_path(card):
     import torch
     from convex_dim_red_tpu_torch import aa_fit_restarts
@@ -321,12 +471,12 @@ def phase_main_path(card):
     t0 = time.perf_counter()
     run()
     warm_s = time.perf_counter() - t0
-    simplex_qp.LAUNCHES = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     result = run()
     elapsed = time.perf_counter() - t0
-    launches = simplex_qp.LAUNCHES
+    launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     Z, C = result['weights'], result['dictionary']
@@ -339,9 +489,11 @@ def phase_main_path(card):
         check(dev <= 1e-4, "%s rows off the simplex by %.3e" % (name, dev))
         check(float(M.min()) >= 0.0, name + " has negative entries")
     check(bool(np.all(np.isfinite(result['costs']))), "non-finite costs")
-    check(launches >= -(-total_iters // RESTART_CHUNK),
+    check(launches["K1"] >= -(-total_iters // RESTART_CHUNK),
           "kernel launches %d < restart-iterations / chunk (%d / %d)"
-          % (launches, total_iters, RESTART_CHUNK))
+          % (launches["K1"], total_iters, RESTART_CHUNK))
+    check(launches["K2"] == launches["K3"] == launches["K4"] == 0,
+          "the main path launched another kernel than K1: %s" % launches)
     audit = audit_cost_f64(result, X_host)
     rel = abs(audit / REFERENCE_AUDITED_COST - 1.0)
     print("  device cost %.4f, float64 audit %.4f, JAX reference audit "
@@ -351,27 +503,202 @@ def phase_main_path(card):
           "outer iterations %.2f, %.1f restart-iterations/s, %d kernel "
           "launches, peak memory %.2f GB, on %s"
           % (elapsed, warm_s, N_INIT, float(np.mean(n_iters)),
-             total_iters / elapsed, launches, peak_gb, card))
+             total_iters / elapsed, launches["K1"], peak_gb, card))
     check(rel <= AUDIT_RTOL, "audited cost %.4f is %.2e from %.2f"
           % (audit, rel, REFERENCE_AUDITED_COST))
-    return launches
+    return launches["K1"], X_host
+
+
+def check_factors(name, model, X):
+    """Rows of the weights (and of C) on the simplex, finite costs."""
+    import torch
+    for part, M in (("weights", model.weights),
+                    ("C", model.dictionary / model.alpha[:, None])):
+        dev = float((M.double().sum(dim=1) - 1.0).abs().max())
+        check(dev <= 1e-4, "%s: %s rows off the simplex by %.3e"
+              % (name, part, dev))
+        check(float(M.min()) >= 0.0, "%s: negative %s" % (name, part))
+    check(bool(torch.isfinite(model.archetypes).all())
+          and np.isfinite(model.cost), name + ": non-finite fit")
+
+
+def watchdog_threshold(X, tolerance):
+    """The fit's watchdog: max(tolerance, 64 eps tr K) (tr K = ||X||^2)."""
+    import torch
+    trace_K = float(torch.sum(X.double() * X.double()))
+    return max(tolerance, 64.0 * float(torch.finfo(X.dtype).eps) * trace_K)
+
+
+def phase_estimator(X_host, card):
+    """ArchetypalAnalysis at full width, k = 6: the default weights
+    backend and 'pallas', then transform."""
+    import torch
+    from convex_dim_red_tpu_torch import ArchetypalAnalysis
+    from convex_dim_red_tpu_torch.ops.furthest_sum import (
+        dissimilarities_from_kernel, furthest_sum, furthest_sum_device)
+    X = torch.as_tensor(X_host, device=DEVICE)
+
+    # FurthestSum on the device against the host version, on the same
+    # dissimilarities (the estimator's init runs the host one; the
+    # restarts run the device one).
+    diss = dissimilarities_from_kernel(X @ X.T)
+    starts = [0, 17, N_SAMPLES // 2, N_SAMPLES - 1]
+    dev_sel = furthest_sum_device(diss, K, torch.as_tensor(starts),
+                                  extra_steps=10).cpu().numpy()
+    diss_host = diss.cpu().numpy()
+    for i, s in enumerate(starts):
+        host = furthest_sum(diss_host, K, s, extra_steps=10)
+        check(np.array_equal(dev_sel[i], host),
+              "FurthestSum from %d: device %s, host %s"
+              % (s, dev_sel[i].tolist(), host.tolist()))
+    print("  FurthestSum: device and host pick the same %d samples from "
+          "%d start indices" % (K, len(starts)))
+
+    def make(backend=None):
+        weights = {'max_iterations': WEIGHTS_MAX_ITERATIONS}
+        if backend:
+            weights['backend'] = backend
+        return ArchetypalAnalysis(
+            K, init='furthest_sum', random_state=0, tolerance=TOL,
+            stopping_criterion='rel_delta_f', max_iterations=MAX_ITER,
+            dictionary_solver_kwargs={
+                'max_iterations': DICT_MAX_ITERATIONS},
+            weights_solver_kwargs=weights)
+
+    thresh = watchdog_threshold(X, TOL)
+    fits = {}
+    k2_launches = 0
+    for label, backend in (("default (row solver)", None),
+                           ("pallas (K2)", "pallas")):
+        model = make(backend)
+        reset_launches()
+        t0 = time.perf_counter()
+        model.fit(X)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        audit = audit_cost_f64(dict(weights=model.weights,
+                                    dictionary=model.dictionary), X_host)
+        rel = abs(audit / model.cost - 1.0)
+        print("  fit, weights backend %s: wall %.3f s, n_iter %d, device "
+              "cost %.4f, float64 audit %.4f (rel diff %.2e; best of 100 "
+              "%.2f), launches %s, on %s"
+              % (label, wall, model.n_iter, model.cost, audit, rel,
+                 REFERENCE_AUDITED_COST, launches, card))
+        check_factors("fit " + label, model, X)
+        check(rel <= 1e-4, "%s: audit %.4f vs device cost %.4f"
+              % (label, audit, model.cost))
+        rise = float(np.max(model.cost_deltas))
+        check(rise <= thresh, "%s: the cost rose by %.3e > watchdog %.3e"
+              % (label, rise, thresh))
+        if backend == "pallas":
+            check(launches["K2"] == model.n_iter,
+                  "pallas fit: %d K2 launches for %d iterations"
+                  % (launches["K2"], model.n_iter))
+            k2_launches += launches["K2"]
+        else:
+            check(sum(launches.values()) == 0,
+                  "the row-solver fit launched a kernel: %s" % launches)
+        fits[label] = model
+
+    model = fits["default (row solver)"]
+    reset_launches()
+    t0 = time.perf_counter()
+    W, cost = model.transform(X)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    print("  transform (auto -> K2): wall %.3f s, cost %.4f (fit %.4f), "
+          "launches %s" % (wall, cost, model.cost, launches))
+    check(launches == dict(K1=0, K2=1, K3=0, K4=0),
+          "transform: launches %s, expected one K2" % launches)
+    check(cost <= model.cost * (1 + 1e-4),
+          "transform cost %.4f above the fit's %.4f" % (cost, model.cost))
+    dev = float((W.double().sum(dim=1) - 1.0).abs().max())
+    check(dev <= 1e-4 and float(W.min()) >= 0.0,
+          "transform weights off the simplex by %.3e" % dev)
+    return k2_launches + launches["K2"]
+
+
+def phase_wide(X_host):
+    """k = 96 at full width: the estimator with K4, the restarts with
+    K3."""
+    import torch
+    from convex_dim_red_tpu_torch import ArchetypalAnalysis, aa_fit_restarts
+    X = torch.as_tensor(X_host, device=DEVICE)
+    thresh = watchdog_threshold(X, 1e-6)
+
+    model = ArchetypalAnalysis(WIDE_K, init='furthest_sum', random_state=0,
+                               max_iterations=10,
+                               weights_solver_kwargs={'backend': 'pallas'})
+    reset_launches()
+    t0 = time.perf_counter()
+    model.fit(X)
+    W, cost = model.transform(X)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    est = read_launches()
+    print("  estimator k=96 fit + transform: wall %.3f s, n_iter %d, cost "
+          "%.4f, transform cost %.4f, launches %s"
+          % (wall, model.n_iter, model.cost, cost, est))
+    check_factors("k=96 fit", model, X)
+    check(float(np.max(model.cost_deltas)) <= thresh,
+          "k=96 fit: the cost rose past the watchdog")
+    check(est["K4"] == model.n_iter + 1 and est["K2"] == 0,
+          "k=96 fit: launches %s for %d iterations" % (est, model.n_iter))
+    check(float((W.double().sum(dim=1) - 1).abs().max()) <= 1e-4
+          and float(W.min()) >= 0.0 and np.isfinite(cost),
+          "k=96 transform: weights off the simplex")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = aa_fit_restarts(X, WIDE_K, 0, 4, restart_chunk=4,
+                          compact_iterations=8, max_iterations=16,
+                          init='furthest_sum')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rst = read_launches()
+    print("  aa_fit_restarts k=96, 4 restarts: wall %.3f s, costs %s, "
+          "n_iters %s, launches %s"
+          % (wall, np.round(res['costs'], 4).tolist(),
+             res['n_iters'].tolist(), rst))
+    check(bool(np.all(np.isfinite(res['costs']))), "k=96 restarts: costs")
+    check(float(np.max(res['cost_deltas'])) <= thresh,
+          "k=96 restarts: the cost rose past the watchdog")
+    check(rst["K3"] > 0 and rst["K1"] == 0,
+          "k=96 restarts: launches %s" % rst)
+    for name, M in (("Z", res['weights']), ("C", res['dictionary'])):
+        dev = float((M.double().sum(dim=1) - 1.0).abs().max())
+        check(dev <= 1e-4 and float(M.min()) >= 0.0,
+              "k=96 restarts: %s rows off the simplex by %.3e" % (name, dev))
+    return rst["K3"], est["K4"]
 
 
 def main():
+    t_start = time.perf_counter()
     card = phase_device()
     import torch
     print("== build")
     phase_build()
-    print("== kernel against its plain version")
-    kernel = phase_kernel()
+    print("== K1 against its plain version")
+    kernels = {"K1": phase_kernel()}
+    print("== K2, K3 and K4 against their plain versions")
+    kernels.update(phase_more_kernels())
     print("== small fit, card against CPU")
     phase_small_fit()
     print("== main path")
-    launches = phase_main_path(card)
+    launches = {}
+    launches["K1"], X_host = phase_main_path(card)
+    print("== estimator, k=6, full width")
+    launches["K2"] = phase_estimator(X_host, card)
+    print("== k=96, full width")
+    launches["K3"], launches["K4"] = phase_wide(X_host)
+    print("all phases passed in %.1f s" % (time.perf_counter() - t_start))
     print(card)
     print(json.dumps({"kernels": [dict(
-        name="simplex_qp_grouped", route="cuda", source=KERNEL_SOURCE,
-        replaces=KERNEL_REPLACES, launches=launches, **kernel)]}))
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=launches[key], **kernels[key])
+        for key, name, source, replaces, _ in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

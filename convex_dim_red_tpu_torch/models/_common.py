@@ -2,7 +2,9 @@
 
 Port of convex_dim_red_tpu/models/_common.py.  The configs keep the
 JAX package's fields and defaults, so a kwargs dict written for one
-package builds the same config in the other.
+package builds the same config in the other.  ``prepare_estimator_mesh``
+is not ported: the estimators' ``mesh=`` is multi-GPU work (ROADMAP.md
+queue 1, item 17).
 """
 
 from dataclasses import dataclass, fields
@@ -22,10 +24,13 @@ __all__ = [
 class QPSolverConfig:
     """Parameters of the simplex-QP SPG solver.
 
-    ``backend``: 'auto' and 'pallas' (the JAX package's name for its
-    fused-kernel route, kept so configs carry over) both run the
-    hand-written grouped QP kernel, ops/simplex_qp.py; 'xla' (the
-    vmapped row solver) is not ported yet and raises.
+    ``backend``: 'pallas' (the JAX package's name for its fused-kernel
+    route, kept so configs carry over) runs the hand-written QP kernels
+    of ops/simplex_qp.py, 'xla' the row solver
+    (solvers/spg.py:quad_simplex_spg), and the default 'auto' picks per
+    call regime (solvers/spg.py:resolve_qp_backend): the kernels for
+    one-shot and restart-grouped solves on a CUDA device, the row
+    solver inside single fits and on the CPU.
     """
     backend: str = 'auto'
     gamma: float = 1e-4
@@ -41,13 +46,10 @@ class QPSolverConfig:
     max_iterations: int = 1000
     max_feval: int = 2000
 
-    def kernel_kwargs(self):
-        """The arguments the grouped QP kernel takes."""
-        return dict(max_iterations=self.max_iterations,
-                    alpha0=self.alpha0, alpha_min=self.alpha_min,
-                    alpha_max=self.alpha_max,
-                    epsilon_one=self.epsilon_one,
-                    epsilon_two=self.epsilon_two)
+    def kwargs(self):
+        """The solver arguments: every field but ``backend``."""
+        return {f.name: getattr(self, f.name) for f in fields(self)
+                if f.name != 'backend'}
 
 
 @dataclass(frozen=True)
@@ -66,6 +68,9 @@ class SPGSolverConfig:
     use_infinity_norm: bool = True
     max_iterations: int = 10000
     max_feval: int = 1000000
+
+    def kwargs(self):
+        return {f.name: getattr(self, f.name) for f in fields(self)}
 
 
 def make_config(cls, kwargs):

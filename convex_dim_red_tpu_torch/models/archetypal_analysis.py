@@ -1,14 +1,62 @@
-"""Archetypal analysis: the helpers the multi-restart fit needs.
+"""Archetypal analysis (standard and kernelized) in PyTorch.
 
-Port of the subset of convex_dim_red_tpu/models/archetypal_analysis.py
-that ``parallel.restarts.aa_fit_restarts`` runs.  The estimators
-(``KernelAA``, ``ArchetypalAnalysis``) and the single-fit loop are
-later slices of the port.
+Port of convex_dim_red_tpu/models/archetypal_analysis.py.  Per outer
+iteration of the alternating minimization: an optional box-constrained
+SPG update of the scale factors ``alpha``, an SPG update of the
+row-stochastic dictionary ``C``, and a batched simplex-QP update of the
+row-stochastic weights ``Z``, with the same cost forms, stopping test
+and monotonicity watchdog as the JAX package.
+
+- The JAX fit is one jitted ``while_loop``; here
+  :func:`_kernel_aa_core` is a Python loop over device tensors that
+  reads one flag (``stop``) on the host per iteration.
+- ``ArchetypalAnalysis`` forms the Gram ``K = X X'`` once and runs the
+  kernel iteration, with the residual-form cost ``0.5 ||Z diag(alpha)
+  C X - X||^2 / n`` (reliable in float32); ``KernelAA`` takes a kernel
+  and uses the trace form.
+- The weights QPs go through ``solvers.spg.quad_simplex_spg_batch``: the
+  row solver by default (``backend='auto'`` resolves with fit-regime
+  semantics), the hand-written kernels with ``backend='pallas'``.
+  ``ArchetypalAnalysis.transform`` is a cold one-shot solve, so
+  ``'auto'`` runs a kernel there on a CUDA device.
+- An estimator's ``random_state`` (an int, ``None``, a
+  ``numpy.random.RandomState`` or a ``torch.Generator``) becomes one
+  ``torch.Generator`` (an int seeds a CPU one); every random draw is
+  made on it and moved to the data's device.  The draws differ from
+  the JAX package's, so a comparison starts both from ``init='custom'``
+  states (utils/interop.py).
+- ``mesh=`` (the JAX package's SPMD fits) is not ported: multi-GPU is
+  ROADMAP.md queue 1, item 17.
 """
 
+import numbers
+import time
+import warnings
+
+import numpy as np
 import torch
 
-__all__ = []
+from ..ops.furthest_sum import dissimilarities_from_kernel, furthest_sum
+from ..ops.simplex_projection import simplex_project_rows
+from ..ops.stochastic_matrices import right_stochastic_matrix
+from ..solvers.spg import (quad_simplex_spg_batch, quad_spg,
+                           resolve_qp_backend)
+from ..utils.precision import apply_matmul_precision, matmul_precision_scope
+from ..utils.validation import check_array_shape, check_stochastic_matrix
+from ._common import (QPSolverConfig, SPGSolverConfig, make_config,
+                      STOPPING_CRITERIA, has_converged)
+
+__all__ = [
+    "KernelAA",
+    "ArchetypalAnalysis",
+    "kernel_aa_cost",
+    "update_kernel_aa_dictionary",
+    "update_kernel_aa_weights",
+    "update_kernel_aa_scale_factors",
+    "iterate_kernel_aa",
+]
+
+INITIALIZATION_METHODS = (None, 'random', 'furthest_sum', 'custom')
 
 
 def _scalar_dtype(dtype):
@@ -31,6 +79,17 @@ def _cost_from_parts(trace_K, CKZ, ZtZ, CKCt, alpha, n_samples):
     return 0.5 * (trace_K.to(sdt) - 2.0 * tr_dckz + tr_quad) / n_samples
 
 
+@apply_matmul_precision
+def kernel_aa_cost(K, weights, dictionary, alpha):
+    """The kernel-AA cost ``0.5||X - a Z C X||^2_F / n`` in kernel
+    form."""
+    K, Z, C, alpha = (torch.as_tensor(a)
+                      for a in (K, weights, dictionary, alpha))
+    CK = C @ K
+    return _cost_from_parts(torch.trace(K), CK @ Z, Z.T @ Z, CK @ C.T,
+                            alpha, K.shape[0])
+
+
 def _spg_cfg_to_quad_kwargs(cfg):
     """Map an :class:`SPGSolverConfig` onto :func:`quad_spg` arguments.
 
@@ -43,3 +102,623 @@ def _spg_cfg_to_quad_kwargs(cfg):
                 alpha_max=cfg.alpha_max, epsilon_one=cfg.epsilon_one,
                 epsilon_two=cfg.epsilon_two,
                 max_iterations=cfg.max_iterations)
+
+
+def update_kernel_aa_dictionary(K, dictionary, alpha, trace_K, KZ, ZtZ,
+                                **solver_kwargs):
+    """SPG solve of the dictionary subproblem (rows on the simplex):
+    minimizes ``0.5 tr(DZ'ZD C K C')/n - tr(C KZD)/n`` over
+    row-stochastic ``C``.  The whole ``(k, n)`` matrix is one
+    :func:`quad_spg` problem (a batch of one).  ``trace_K`` is accepted
+    for signature parity."""
+    del trace_K
+    cfg = make_config(SPGSolverConfig, solver_kwargs)
+    n_samples = K.shape[0]
+    KZD = KZ * alpha[None, :]
+    DZtZD = (alpha[:, None] * ZtZ) * alpha[None, :]
+    C = quad_spg(lambda Cm: DZtZD @ (Cm @ K) / n_samples,
+                 (KZD.T / n_samples)[None], dictionary[None],
+                 simplex_project_rows, **_spg_cfg_to_quad_kwargs(cfg))
+    return C[0]
+
+
+def update_kernel_aa_weights(weights, alpha, CK, CKCt,
+                             component_mask=None, **solver_kwargs):
+    """Batched simplex-QP update of the weights: per row ``t`` solve
+    ``min 1/2 z' (D CKC' D) z - (D CK)[:, t]' z`` on the simplex, through
+    ``quad_simplex_spg_batch`` with the config's backend."""
+    cfg = make_config(QPSolverConfig, solver_kwargs)
+    A = (alpha[:, None] * CKCt) * alpha[None, :]
+    B = -(alpha[:, None] * CK).T
+    return quad_simplex_spg_batch(A, B, weights, backend=cfg.backend,
+                                  mask=component_mask, **cfg.kwargs())
+
+
+def update_kernel_aa_scale_factors(alpha, trace_K, CKZ, ZtZ, CKCt, delta,
+                                   **solver_kwargs):
+    """Box-constrained SPG update of the scale factors, on
+    ``[1 - delta, 1 + delta]``."""
+    cfg = make_config(SPGSolverConfig, solver_kwargs)
+    # The JAX function divides by CKZ.shape[1], which is k (CKZ is
+    # k x k): the minimizer is the same, the SPG iterates follow it.
+    scale = CKZ.shape[1] if CKZ.ndim == 2 else CKZ.shape[0]
+    M = ZtZ * CKCt  # symmetric PSD (Schur product of PSD matrices)
+    lo, hi = 1.0 - delta, 1.0 + delta
+    a = quad_spg(lambda v: (v @ M.T) / scale,
+                 (torch.diagonal(CKZ) / scale)[None], alpha[None],
+                 lambda v: torch.clamp(v, lo, hi),
+                 **_spg_cfg_to_quad_kwargs(cfg))
+    return a[0]
+
+
+@apply_matmul_precision
+def _kernel_aa_core(K, Z, C, alpha, delta, tolerance, X,
+                    component_mask=None, *,
+                    do_scale, do_dict, do_weights, criterion,
+                    max_iterations, require_monotonic, has_data,
+                    dict_cfg, weights_cfg, scale_cfg):
+    """The alternating fit, up to ``max_iterations`` iterations.
+
+    With ``has_data`` the cost is the residual form from the data ``X``;
+    otherwise the kernel trace form.  Each stage's cost increase beyond
+    ``max(tolerance, 64 eps tr K)`` (below that floor an increase is
+    not certifiable: the kernel-space model agrees with the true cost
+    only up to the rounding of forming K) sets that stage's flag in
+    ``inc_flags``; with ``require_monotonic`` a flag stops the loop.
+    ``delta`` is a 0-d tensor of ``K``'s dtype.
+
+    Returns ``(Z, C, alpha, cost, n_iter, cost_trace, inc_flags,
+    stop)``; ``stop`` tells a fired criterion (or watchdog) from the
+    iteration cap.
+    """
+    n_samples = K.shape[0]
+    sdt = _scalar_dtype(K.dtype)
+    trace_K = torch.trace(K).to(sdt)
+
+    ZtZ = Z.T @ Z
+    KZ = K @ Z
+    CK = C @ K
+    CKCt = CK @ C.T
+    CKZ = C @ KZ
+    CX = C @ X if has_data else None
+
+    def cost_fn(Z, alpha, CKZ, ZtZ, CKCt, CX):
+        if has_data:
+            resid = Z @ (alpha[:, None] * CX) - X
+            return (0.5 * torch.sum(resid * resid) / n_samples).to(sdt)
+        return _cost_from_parts(trace_K, CKZ, ZtZ, CKCt, alpha, n_samples)
+
+    new_cost = cost_fn(Z, alpha, CKZ, ZtZ, CKCt, CX)
+    tolerance = torch.as_tensor(tolerance, dtype=sdt, device=K.device)
+    cost_trace = torch.zeros((max(int(max_iterations), 1),), dtype=sdt,
+                             device=K.device)
+    inc_flags = torch.zeros((3,), dtype=torch.bool, device=K.device)
+    watchdog_floor = 64.0 * torch.finfo(K.dtype).eps * trace_K
+    watchdog_thresh = torch.maximum(tolerance, watchdog_floor)
+
+    def increased(old, new):
+        return (new > old) & (new - old > watchdog_thresh)
+
+    weights_backend = resolve_qp_backend(weights_cfg.backend, regime='fit')
+    n_iter = 0
+    stop = False
+    while not stop and n_iter < max_iterations:
+        old_cost = new_cost
+
+        if do_scale:
+            alpha = update_kernel_aa_scale_factors(
+                alpha, trace_K, CKZ, ZtZ, CKCt, delta, **scale_cfg.kwargs())
+            new_cost = cost_fn(Z, alpha, CKZ, ZtZ, CKCt, CX)
+            inc_flags[0] |= increased(old_cost, new_cost)
+
+        if do_dict:
+            C = update_kernel_aa_dictionary(
+                K, C, alpha, trace_K, KZ, ZtZ, **dict_cfg.kwargs())
+            CK = C @ K
+            CKCt = CK @ C.T
+            CKZ = C @ KZ
+            if has_data:
+                CX = C @ X
+            new_cost = cost_fn(Z, alpha, CKZ, ZtZ, CKCt, CX)
+            inc_flags[1] |= increased(old_cost, new_cost)
+
+        if do_weights:
+            Z = update_kernel_aa_weights(
+                Z, alpha, CK, CKCt, component_mask=component_mask,
+                backend=weights_backend, **weights_cfg.kwargs())
+            ZtZ = Z.T @ Z
+            KZ = K @ Z
+            CKZ = C @ KZ
+            new_cost = cost_fn(Z, alpha, CKZ, ZtZ, CKCt, CX)
+            inc_flags[2] |= increased(old_cost, new_cost)
+
+        cost_trace[n_iter] = new_cost - old_cost
+        stop_flag = has_converged(old_cost, new_cost, tolerance, criterion)
+        if require_monotonic:
+            stop_flag = stop_flag | torch.any(inc_flags)
+        n_iter += 1
+        stop = bool(stop_flag)
+
+    return Z, C, alpha, new_cost, n_iter, cost_trace, inc_flags, stop
+
+
+_STAGE_NAMES = ('scale factors', 'dictionary', 'weights')
+
+#: Iterations per chunk of the verbose table (see
+#: :func:`iterate_kernel_aa`), as in the JAX package.
+_VERBOSE_CHUNK = 10
+
+
+def iterate_kernel_aa(K, weights, dictionary, alpha, delta=0,
+                      update_weights=True, update_dictionary=True,
+                      update_scale_factors=True, tolerance=1e-6,
+                      max_iterations=1000, verbose=0, data=None, **kwargs):
+    """Run alternating kernel-AA updates to convergence.
+
+    Returns ``(weights, dictionary, alpha, cost, n_iter,
+    avg_time_per_iter, cost_deltas)`` as the JAX function does: ``cost``
+    a 0-d tensor, ``n_iter`` the iterations executed, the average time
+    the wall clock over the fit divided by ``n_iter``, ``cost_deltas``
+    a numpy array.  ``verbose`` prints the reference's iteration table,
+    in chunks of :data:`_VERBOSE_CHUNK` iterations as the JAX package
+    does (each row's time is its chunk's wall time per iteration).  A
+    cost increase past the watchdog raises ``RuntimeError`` naming the
+    stage (with ``require_monotonic_cost_decrease``, the default).
+    """
+    if kwargs.get('stopping_criterion',
+                  'abs_delta_f') not in STOPPING_CRITERIA:
+        raise ValueError("unsupported stopping criterion '%s'"
+                         % kwargs['stopping_criterion'])
+
+    require_monotonic = bool(kwargs.get('require_monotonic_cost_decrease',
+                                        True))
+    criterion = kwargs.get('stopping_criterion', 'abs_delta_f')
+    dict_cfg = make_config(SPGSolverConfig,
+                           kwargs.get('dictionary_solver_kwargs'))
+    weights_cfg = make_config(QPSolverConfig,
+                              kwargs.get('weights_solver_kwargs'))
+    scale_cfg = make_config(SPGSolverConfig,
+                            kwargs.get('scale_factors_solver_kwargs'))
+
+    K = torch.as_tensor(K)
+    Z = torch.as_tensor(weights, device=K.device)
+    C = torch.as_tensor(dictionary, device=K.device)
+    alpha = torch.as_tensor(alpha, dtype=K.dtype, device=K.device)
+    has_data = data is not None
+    X = torch.as_tensor(data, device=K.device) if has_data else None
+
+    def core(Z, C, alpha, max_iterations):
+        return _kernel_aa_core(
+            K, Z, C, alpha, torch.as_tensor(delta, dtype=K.dtype,
+                                            device=K.device),
+            tolerance, X, do_scale=(bool(update_scale_factors)
+                                    and float(delta) != 0.0),
+            do_dict=bool(update_dictionary),
+            do_weights=bool(update_weights), criterion=criterion,
+            max_iterations=max_iterations,
+            require_monotonic=require_monotonic, has_data=has_data,
+            dict_cfg=dict_cfg, weights_cfg=weights_cfg,
+            scale_cfg=scale_cfg)
+
+    start = time.perf_counter()
+    if verbose:
+        print("*** Kernel AA: n_components = {:d} ***".format(Z.shape[1]))
+        print('{:<12s} | {:<13s} | {:<13s} | {:<12s}'.format(
+            'Iteration', 'Cost', 'Cost delta', 'Time'))
+        print(80 * '-')
+        row = '{:12d} | {: 12.6e} | {: 12.6e} | {: 12.6e}'
+
+        chunk = int(min(_VERBOSE_CHUNK, max_iterations))
+        n_iter = 0
+        stop = False
+        deltas_parts = []
+        inc_flags = np.zeros(3, dtype=bool)
+        cost = None
+        while not stop and n_iter < int(max_iterations):
+            this_chunk = min(chunk, int(max_iterations) - n_iter)
+            t0 = time.perf_counter()
+            Z, C, alpha, cost, n_it, trace, inc, stop = core(
+                Z, C, alpha, this_chunk)
+            dt = time.perf_counter() - t0
+            if n_it == 0:
+                break
+            deltas = trace[:n_it].cpu().numpy()
+            # Cost after in-chunk iteration i: the chunk's final cost
+            # minus the deltas still to come.
+            suffix = np.cumsum(deltas[::-1])[::-1]
+            costs = float(cost) - suffix + deltas
+            for i in range(n_it):
+                print(row.format(n_iter + i + 1, costs[i], deltas[i],
+                                 dt / n_it))
+            deltas_parts.append(deltas)
+            inc_flags |= inc.cpu().numpy()
+            n_iter += n_it
+        if cost is None:
+            # max_iterations == 0: the initial cost, as the quiet path.
+            cost = core(Z, C, alpha, 0)[3]
+        cost_deltas = (np.concatenate(deltas_parts) if deltas_parts
+                       else np.zeros((0,)))
+        if stop and not inc_flags.any():
+            print('*** Converged at iteration {:d} ***'.format(n_iter))
+    else:
+        Z, C, alpha, cost, n_iter, cost_trace, inc, _ = core(
+            Z, C, alpha, int(max_iterations))
+        inc_flags = inc.cpu().numpy()
+        cost_deltas = cost_trace[:n_iter].cpu().numpy()
+    elapsed = time.perf_counter() - start
+
+    if require_monotonic and inc_flags.any():
+        stage = _STAGE_NAMES[int(np.argmax(inc_flags))]
+        raise RuntimeError(
+            'factorization cost increased after {} update'.format(stage))
+
+    avg_time = elapsed / max(n_iter, 1)
+
+    return Z, C, alpha, cost, n_iter, avg_time, cost_deltas
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+
+
+def _as_generator(random_state):
+    """Coerce an int / None / ``numpy.random.RandomState`` /
+    ``torch.Generator`` into a ``torch.Generator`` (a CPU one unless a
+    generator is given)."""
+    if isinstance(random_state, torch.Generator):
+        return random_state
+    if random_state is None:
+        seed = np.random.randint(2 ** 31 - 1)
+    elif isinstance(random_state, np.random.RandomState):
+        seed = random_state.randint(2 ** 31 - 1)
+    elif isinstance(random_state, (int, np.integer)):
+        seed = int(random_state)
+    else:
+        raise TypeError("random_state must be an int, None, a "
+                        "numpy.random.RandomState or a torch.Generator; "
+                        "got %r" % (random_state,))
+    return torch.Generator().manual_seed(seed)
+
+
+def initialize_kernel_aa_dictionary(kernel, n_components,
+                                    init='furthest_sum', generator=None,
+                                    **kwargs):
+    """Dictionary init: one-hot rows of the FurthestSum-selected samples
+    (``start_index``, ``n_extra_steps`` (10) and ``exclude`` from
+    ``kwargs``; a random start index when none is given), or a random
+    right-stochastic matrix."""
+    n_samples = kernel.shape[0]
+    if init is None:
+        init = 'furthest_sum'
+
+    if init == 'furthest_sum':
+        start_index = kwargs.get('start_index')
+        n_extra_steps = kwargs.get('n_extra_steps', 10)
+        exclude = kwargs.get('exclude')
+        if start_index is None:
+            start_index = int(torch.randint(0, n_samples, (),
+                                            generator=generator))
+        selected = furthest_sum(dissimilarities_from_kernel(kernel),
+                                n_components, start_index, exclude,
+                                n_extra_steps)
+        dictionary = torch.zeros((n_components, n_samples),
+                                 dtype=kernel.dtype, device=kernel.device)
+        dictionary[torch.arange(n_components, device=kernel.device),
+                   torch.as_tensor(selected, device=kernel.device)] = 1
+        return dictionary
+
+    if init == 'random':
+        return right_stochastic_matrix(
+            generator, (n_components, n_samples), dtype=kernel.dtype,
+            device=kernel.device)
+
+    raise ValueError(
+        'Invalid init parameter: got %r instead of one of %r'
+        % (init, INITIALIZATION_METHODS))
+
+
+def initialize_kernel_aa_weights(kernel, n_components, init='furthest_sum',
+                                 generator=None):
+    if init in (None, 'furthest_sum', 'random'):
+        return right_stochastic_matrix(
+            generator, (kernel.shape[0], n_components),
+            dtype=kernel.dtype, device=kernel.device)
+    raise ValueError(
+        'Invalid init parameter: got %r instead of one of %r'
+        % (init, INITIALIZATION_METHODS))
+
+
+def initialize_kernel_aa_scale_factors(n_components, delta=0,
+                                       generator=None,
+                                       dtype=torch.float64, device=None):
+    if delta != 0:
+        u = torch.rand((n_components,), generator=generator, dtype=dtype,
+                       device=generator.device).to(device)
+        return (1 - delta) + 2 * delta * u
+    return torch.ones((n_components,), dtype=dtype, device=device)
+
+
+def _check_init_scale_factors(alpha, delta, shape, whom):
+    check_array_shape(alpha, shape, whom)
+    a = torch.as_tensor(alpha)
+    if bool(torch.any((a < 1 - delta) | (a > 1 + delta))):
+        raise ValueError('Initial scale factors infeasible in %s' % whom)
+
+
+def _reject_mesh(mesh):
+    if mesh is not None:
+        raise ValueError("mesh= is not ported yet (ROADMAP.md queue 1, "
+                         "item 17: multi-GPU)")
+
+
+# ---------------------------------------------------------------------------
+# Estimators
+# ---------------------------------------------------------------------------
+
+
+class KernelAA:
+    """Kernel archetypal analysis on a precomputed Gram/kernel matrix.
+
+    The JAX package's (and the reference's) constructor parameters,
+    ``fit`` / ``fit_transform``, and fitted attributes ``weights``,
+    ``dictionary``, ``alpha``, ``cost``, ``n_iter``,
+    ``avg_time_per_iter``, ``cost_deltas``.  The fit runs on the
+    kernel's device and in its dtype.  ``random_state``: see the module
+    docstring.  ``mesh`` must be None.
+    """
+
+    def __init__(self, n_components, delta=0, init=None,
+                 tolerance=1e-6, max_iterations=1000, verbose=0,
+                 random_state=None, mesh=None, **kwargs):
+        _reject_mesh(mesh)
+        self.n_components = n_components
+        self.delta = delta
+        self.init = init
+        self.tolerance = tolerance
+        self.max_iterations = max_iterations
+        self.verbose = verbose
+        self.mesh = mesh
+        self._generator = _as_generator(random_state)
+        self.require_monotonic_cost_decrease = kwargs.get(
+            'require_monotonic_cost_decrease', True)
+        self.stopping_criterion = kwargs.get('stopping_criterion',
+                                             'abs_delta_f')
+
+        self.weights = None
+        self.dictionary = None
+        self.alpha = None
+        self.cost = 0
+        self.n_iter = 0
+        self.avg_time_per_iter = 0
+        self.cost_deltas = None
+
+        self.weights_solver_kwargs = kwargs.get('weights_solver_kwargs', {})
+        self.dictionary_solver_kwargs = kwargs.get(
+            'dictionary_solver_kwargs', {})
+        self.scale_factors_solver_kwargs = kwargs.get(
+            'scale_factors_solver_kwargs', {})
+
+    def _validate_params(self):
+        if not isinstance(self.n_components, (numbers.Integral, np.integer)) \
+                or self.n_components <= 0:
+            raise ValueError(
+                'Number of components must be a positive integer;'
+                ' got (n_components=%r)' % self.n_components)
+        if not isinstance(self.max_iterations,
+                          (numbers.Integral, np.integer)) \
+                or self.max_iterations <= 0:
+            raise ValueError(
+                'Maximum number of iterations must be a positive integer;'
+                ' got (max_iterations=%r)' % self.max_iterations)
+        if not isinstance(self.tolerance, numbers.Number) \
+                or self.tolerance < 0:
+            raise ValueError(
+                'Tolerance for stopping criteria must be positive;'
+                ' got (tolerance=%r)' % self.tolerance)
+
+    def _prepare_state(self, kernel, dictionary, weights, alpha,
+                       update_dictionary, update_weights, whom, **kwargs):
+        n_samples = kernel.shape[0]
+        k = self.n_components
+        gen = self._generator
+
+        if self.init == 'custom':
+            check_stochastic_matrix(weights, (n_samples, k), whom, axis=1)
+            check_stochastic_matrix(dictionary, (k, n_samples), whom,
+                                    axis=1)
+            if alpha is not None:
+                _check_init_scale_factors(alpha, self.delta, (k,), whom)
+        elif not update_dictionary and update_weights:
+            check_stochastic_matrix(dictionary, (k, n_samples), whom,
+                                    axis=1)
+            weights = initialize_kernel_aa_weights(
+                kernel, k, init=self.init, generator=gen)
+        elif update_dictionary and not update_weights:
+            check_stochastic_matrix(weights, (n_samples, k), whom, axis=1)
+            dictionary = initialize_kernel_aa_dictionary(
+                kernel, k, init=self.init, generator=gen, **kwargs)
+        else:
+            dictionary = initialize_kernel_aa_dictionary(
+                kernel, k, init=self.init, generator=gen, **kwargs)
+            weights = initialize_kernel_aa_weights(
+                kernel, k, init=self.init, generator=gen)
+
+        if alpha is None:
+            alpha = initialize_kernel_aa_scale_factors(
+                k, delta=self.delta, generator=gen, dtype=kernel.dtype,
+                device=kernel.device)
+        else:
+            _check_init_scale_factors(alpha, self.delta, (k,), whom)
+
+        return tuple(torch.as_tensor(a, dtype=kernel.dtype,
+                                     device=kernel.device)
+                     for a in (dictionary, weights, alpha))
+
+    def _kernel_aa(self, kernel, dictionary=None, weights=None, alpha=None,
+                   update_dictionary=True, update_weights=True,
+                   update_scale_factors=True, data=None, **kwargs):
+        kernel = torch.as_tensor(kernel)
+        n_samples = kernel.shape[0]
+        if kernel.ndim != 2 or kernel.shape[1] != n_samples:
+            raise ValueError(
+                'Expected square kernel matrix in %s. Got shape %s'
+                % ('kernel_aa', tuple(kernel.shape)))
+
+        if self.n_components is None:
+            self.n_components = n_samples
+        self._validate_params()
+
+        dictionary, weights, alpha = self._prepare_state(
+            kernel, dictionary, weights, alpha,
+            update_dictionary, update_weights, '_kernel_aa', **kwargs)
+
+        (self.weights, self.dictionary, self.alpha, cost, n_iter,
+         avg_time, cost_deltas) = iterate_kernel_aa(
+            kernel, weights, dictionary, alpha, delta=self.delta,
+            update_weights=update_weights,
+            update_dictionary=update_dictionary,
+            update_scale_factors=update_scale_factors,
+            data=data,
+            tolerance=self.tolerance,
+            max_iterations=self.max_iterations,
+            verbose=self.verbose,
+            require_monotonic_cost_decrease=(
+                self.require_monotonic_cost_decrease),
+            stopping_criterion=self.stopping_criterion,
+            weights_solver_kwargs=self.weights_solver_kwargs,
+            dictionary_solver_kwargs=self.dictionary_solver_kwargs,
+            scale_factors_solver_kwargs=self.scale_factors_solver_kwargs)
+
+        if n_iter >= self.max_iterations and self.tolerance > 0:
+            warnings.warn('Maximum number of iterations %d reached.'
+                          % self.max_iterations, UserWarning)
+
+        return cost, n_iter, avg_time, cost_deltas
+
+    def fit_transform(self, data, dictionary=None, weights=None, alpha=None,
+                      _data_matrix=None, **kwargs):
+        """Fit kernel AA to ``data`` (a kernel matrix) and return weights."""
+        cost, n_iter, avg_time, cost_deltas = self._kernel_aa(
+            data, dictionary=dictionary, weights=weights, alpha=alpha,
+            data=_data_matrix, **kwargs)
+        self.cost = float(cost)
+        self.n_iter = n_iter
+        self.avg_time_per_iter = avg_time
+        self.cost_deltas = cost_deltas
+        return self.weights
+
+    def fit(self, kernel, **kwargs):
+        self.fit_transform(kernel, **kwargs)
+        return self
+
+
+class ArchetypalAnalysis:
+    """Standard archetypal analysis: ``min ||X - a Z C X||^2_F``.
+
+    The JAX package's estimator: it forms the Gram matrix once and runs
+    the kernel iteration with the residual-form cost.  ``fit`` /
+    ``fit_transform`` / ``transform`` / ``inverse_transform``, with the
+    fitted attributes of :class:`KernelAA` plus ``archetypes`` (``a C
+    X``).  The fit runs on the data's device and in its dtype.
+    """
+
+    def __init__(self, n_components, delta=0, init=None,
+                 tolerance=1e-6, max_iterations=1000, verbose=0,
+                 random_state=None, mesh=None, **kwargs):
+        self._kernel_model = KernelAA(
+            n_components, delta=delta, init=init, tolerance=tolerance,
+            max_iterations=max_iterations, verbose=verbose,
+            random_state=random_state, mesh=mesh, **kwargs)
+        self.n_components = n_components
+        self.delta = delta
+        self.init = init
+        self.tolerance = tolerance
+        self.max_iterations = max_iterations
+        self.verbose = verbose
+        self.mesh = mesh
+
+        self.weights = None
+        self.dictionary = None
+        self.alpha = None
+        self.archetypes = None
+        self.cost = 0
+        self.n_iter = 0
+        self.avg_time_per_iter = 0
+        self.cost_deltas = None
+
+    @property
+    def weights_solver_kwargs(self):
+        return self._kernel_model.weights_solver_kwargs
+
+    def fit_transform(self, data, dictionary=None, weights=None, alpha=None,
+                      **kwargs):
+        """Fit AA to ``data`` with shape (n_samples, n_features)."""
+        data = torch.as_tensor(data)
+        if self.n_components is None:
+            # Reference quirk kept for parity: data-space AA defaults to
+            # n_features components.
+            self.n_components = data.shape[1]
+            self._kernel_model.n_components = data.shape[1]
+
+        with matmul_precision_scope():
+            kernel = data @ data.T
+
+        self._kernel_model.fit_transform(
+            kernel, dictionary=dictionary, weights=weights, alpha=alpha,
+            _data_matrix=data, **kwargs)
+
+        km = self._kernel_model
+        self.weights = km.weights
+        self.alpha = km.alpha
+        self.cost = km.cost
+        self.n_iter = km.n_iter
+        self.avg_time_per_iter = km.avg_time_per_iter
+        self.cost_deltas = km.cost_deltas
+
+        dictionary = km.dictionary
+        if self.delta != 0:
+            dictionary = self.alpha[:, None] * dictionary
+        self.dictionary = dictionary
+        with matmul_precision_scope():
+            self.archetypes = dictionary @ data
+
+        return self.weights
+
+    def fit(self, data, **kwargs):
+        self.fit_transform(data, **kwargs)
+        return self
+
+    def transform(self, data):
+        """Solve weights for new data against the fitted archetypes: one
+        simplex QP per row, a cold one-shot batch (``backend='auto'``
+        runs a kernel on a CUDA device), capped at the estimator's
+        ``max_iterations`` as in the reference.  Returns ``(weights,
+        cost)``."""
+        data = torch.as_tensor(data)
+        n_samples = data.shape[0]
+
+        cfg = make_config(QPSolverConfig, dict(
+            self._kernel_model.weights_solver_kwargs) or None)
+        cfg_kwargs = cfg.kwargs()
+        cfg_kwargs['backend'] = cfg.backend
+        cfg_kwargs['max_iterations'] = int(self.max_iterations)
+
+        archetypes = self.archetypes.to(data.device, data.dtype)
+        Z0 = right_stochastic_matrix(
+            self._kernel_model._generator, (n_samples, self.n_components),
+            dtype=data.dtype, device=data.device)
+
+        with matmul_precision_scope():
+            A = archetypes @ archetypes.T
+            B = -(data @ archetypes.T)
+            weights = quad_simplex_spg_batch(A, B, Z0, **cfg_kwargs)
+            self.weights = weights
+            resid = data - weights @ archetypes
+        cost = 0.5 * float(torch.sum(resid * resid)) / n_samples
+        return weights, cost
+
+    def inverse_transform(self, weights):
+        """Map weights back to data space: ``Z @ archetypes``."""
+        with matmul_precision_scope():
+            return torch.as_tensor(weights) @ self.archetypes

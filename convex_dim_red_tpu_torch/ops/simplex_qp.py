@@ -1,22 +1,42 @@
-"""Grouped batched simplex-QP solver: the CUDA kernel and its plain
-PyTorch version.
+"""Batched simplex-QP solvers: the CUDA kernels and their plain PyTorch
+versions.
 
-Port of convex_dim_red_tpu/ops/pallas_qp.py:
-quad_simplex_qp_pallas_packed_grouped.  For every group ``r`` and row
-``i`` it solves ``min 1/2 x'A_r x + b_ri'x`` over the (optionally
-masked) simplex by projected spectral gradient with the exact line
-search, and stops each row on the kernel's own rule (``||D|| < eps *
-min(alpha, 1)`` or three stalled iterations; see csrc/simplex_qp.cu).
+Port of the four kernels of convex_dim_red_tpu/ops/pallas_qp.py.  For
+every group ``r`` and row ``i`` each solves ``min 1/2 x'A_r x + b_ri'x``
+over the (optionally masked) simplex by projected spectral gradient with
+the exact line search, and stops each row on the kernels' own rule
+(``||D|| < eps * min(alpha, 1)`` or three stalled iterations; see
+csrc/simplex_qp.cu).
 
-- :func:`quad_simplex_qp_packed_grouped` is the wrapper.  A CUDA tensor
-  goes to the kernel in ``csrc/simplex_qp.cu``, which is built with
-  ``nvcc`` for ``sm_90a`` at first use into ``_build/`` (the file name
-  carries a hash of the source and flags) and bound with ``ctypes``.
-  A CPU tensor goes to the plain version.  Each kernel launch adds one
-  to :data:`LAUNCHES`.
-- :func:`quad_simplex_qp_packed_grouped_reference` is the plain
-  version: the same algorithm and stopping rule in PyTorch over the
-  ``(R, n, k)`` batch, with per-row active masks.
+- K1 :func:`quad_simplex_qp_packed_grouped` replaces
+  ``quad_simplex_qp_pallas_packed_grouped`` (R groups, k <= 64);
+- K2 :func:`quad_simplex_qp_packed` replaces
+  ``quad_simplex_qp_pallas_packed`` (one Hessian, k <= 64);
+- K3 :func:`quad_simplex_qp_grouped` replaces
+  ``quad_simplex_qp_pallas_grouped`` (R groups, k <= 128);
+- K4 :func:`quad_simplex_qp` replaces ``quad_simplex_qp_pallas`` (one
+  Hessian, k <= 128).
+
+- K1 and K2 run the one-thread-per-row kernel of ``csrc/simplex_qp.cu``
+  (K2 is K1 with one group), with the Michelot or the bisection
+  projection.  K3 and K4 run the one-warp-per-row kernel of
+  ``csrc/simplex_qp_unpacked.cu`` (K4 is K3 with one group), bisection
+  only, as on the TPU.
+- Each library is built with ``nvcc`` for ``sm_90a`` at first use into
+  ``_build/`` (the file name carries a hash of the source and flags)
+  and bound with ``ctypes``.  A CUDA tensor goes to the kernel, a CPU
+  tensor to the plain version; each wrapper adds one to its own launch
+  count (:data:`LAUNCHES`, :data:`PACKED_LAUNCHES`,
+  :data:`GROUPED_LAUNCHES`, :data:`UNPACKED_LAUNCHES`) per kernel launch.
+- The plain versions are one loop over the ``(R, n, k)`` batch with
+  per-row active masks: :func:`quad_simplex_qp_packed_grouped_reference`
+  (K1, and K2 at R = 1) and :func:`quad_simplex_qp_grouped_reference`
+  (the same loop with bisection and k up to 128: K3, and K4 at R = 1).
+
+The solver arguments of every wrapper are ``max_iterations`` (1000),
+``alpha0`` (-1, i.e. from the first projected gradient), ``alpha_min``
+(1e-5), ``alpha_max`` (1e3), ``epsilon_one`` (1e-10) and
+``epsilon_two`` (1e-6), the JAX kernels' defaults.
 """
 
 import ctypes
@@ -30,29 +50,68 @@ import torch
 
 __all__ = [
     "MAX_K",
+    "UNPACKED_MAX_K",
     "LAUNCHES",
+    "PACKED_LAUNCHES",
+    "GROUPED_LAUNCHES",
+    "UNPACKED_LAUNCHES",
     "quad_simplex_qp_packed_grouped",
+    "quad_simplex_qp_packed",
+    "quad_simplex_qp_grouped",
+    "quad_simplex_qp",
     "quad_simplex_qp_packed_grouped_reference",
+    "quad_simplex_qp_grouped_reference",
     "load_library",
+    "load_unpacked_library",
     "build_log",
 ]
 
-#: Widest QP the kernel takes (the projection's active set is a 64-bit
-#: mask).
+#: Widest QP the packed kernels (K1, K2) take: the Michelot active set
+#: is a 64-bit mask.
 MAX_K = 64
 
-#: Kernel launches made by :func:`quad_simplex_qp_packed_grouped`.
+#: Widest QP the unpacked kernels (K3, K4) take, as on the TPU.
+UNPACKED_MAX_K = 128
+
+#: Kernel launches made by :func:`quad_simplex_qp_packed_grouped` (K1).
 LAUNCHES = 0
+
+#: Kernel launches made by :func:`quad_simplex_qp_packed` (K2).
+PACKED_LAUNCHES = 0
+
+#: Kernel launches made by :func:`quad_simplex_qp_grouped` (K3).
+GROUPED_LAUNCHES = 0
+
+#: Kernel launches made by :func:`quad_simplex_qp` (K4).
+UNPACKED_LAUNCHES = 0
 
 _PROJECTIONS = ("michelot", "bisect")
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "simplex_qp.cu"
+_SOLVER_DEFAULTS = dict(max_iterations=1000, alpha0=-1.0, alpha_min=1e-5,
+                        alpha_max=1e3, epsilon_one=1e-10,
+                        epsilon_two=1e-6)
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+PACKED_SOURCE = _CSRC / "simplex_qp.cu"
+UNPACKED_SOURCE = _CSRC / "simplex_qp_unpacked.cu"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lib = None
-_build_log = ""
+# Argument types after (dtype, ...) of the two C launch functions.
+_SOLVE_ARGTYPES = [ctypes.c_int, ctypes.c_double, ctypes.c_int,
+                   ctypes.c_double, ctypes.c_double, ctypes.c_double,
+                   ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
+_PACKED_ARGTYPES = ([ctypes.c_int, ctypes.c_int]
+                    + [ctypes.c_void_p] * 4
+                    + [ctypes.c_int] * 3 + [ctypes.c_uint64]
+                    + _SOLVE_ARGTYPES)
+_UNPACKED_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                      + [ctypes.c_int] * 3 + [ctypes.c_uint64] * 2
+                      + _SOLVE_ARGTYPES)
+
+_libs = {}
+_build_logs = {}
 
 
 def _bisect_steps(dtype):
@@ -65,24 +124,20 @@ def _nvcc():
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME is None:
         raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on "
-                           "PATH to build csrc/simplex_qp.cu")
+                           "PATH to build the kernels in csrc/")
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def load_library():
-    """Build (once per source hash) and load the kernel library.
-
-    Returns the ``ctypes`` handle.  A failed build raises with nvcc's
-    output.  The build log (``-Xptxas -v``: registers, shared memory,
-    spills) is kept in :func:`build_log`.
-    """
-    global _lib, _build_log
-    if _lib is not None:
-        return _lib
-    source = _SOURCE.read_bytes()
+def _load(source, symbol, argtypes):
+    """Build ``source`` (once per source hash) and load it.  A failed
+    build raises with nvcc's output; the build log (``-Xptxas -v``) is
+    kept for :func:`build_log`."""
+    if source in _libs:
+        return _libs[source]
+    text = source.read_bytes()
     digest = hashlib.sha256(
-        source + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = _BUILD_DIR / ("libsimplex_qp-%s.so" % digest)
+        text + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    path = _BUILD_DIR / ("lib%s-%s.so" % (source.stem, digest))
     log_path = path.with_suffix(".log")
     if not path.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -90,39 +145,55 @@ def load_library():
         os.close(fd)
         try:
             proc = subprocess.run(
-                [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
+                [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(source)],
                 capture_output=True, text=True, check=False)
             if proc.returncode != 0:
                 raise RuntimeError("nvcc failed to build %s:\n%s%s"
-                                   % (_SOURCE, proc.stdout, proc.stderr))
+                                   % (source, proc.stdout, proc.stderr))
             log_path.write_text(proc.stdout + proc.stderr)
             os.replace(tmp, path)
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
     lib = ctypes.CDLL(str(path))
-    fn = lib.simplex_qp_grouped_launch
+    fn = getattr(lib, symbol)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_uint64, ctypes.c_int,
-                   ctypes.c_double, ctypes.c_int, ctypes.c_double,
-                   ctypes.c_double, ctypes.c_double, ctypes.c_double,
-                   ctypes.c_int, ctypes.c_void_p]
-    _build_log = log_path.read_text() if log_path.exists() else ""
-    _lib = lib
+    fn.argtypes = argtypes
+    _build_logs[source] = log_path.read_text() if log_path.exists() else ""
+    _libs[source] = lib
     return lib
 
 
-def build_log():
-    """nvcc's output from the build of the loaded library ('' before
-    the first load)."""
-    return _build_log
+def load_library():
+    """Build and load ``csrc/simplex_qp.cu`` (K1, K2); returns the
+    ``ctypes`` handle."""
+    return _load(PACKED_SOURCE, "simplex_qp_grouped_launch",
+                 _PACKED_ARGTYPES)
 
 
-def _check(As, Bs, X0s, mask, projection):
+def load_unpacked_library():
+    """Build and load ``csrc/simplex_qp_unpacked.cu`` (K3, K4); returns
+    the ``ctypes`` handle."""
+    return _load(UNPACKED_SOURCE, "simplex_qp_unpacked_launch",
+                 _UNPACKED_ARGTYPES)
+
+
+def build_log(source=PACKED_SOURCE):
+    """nvcc's output from the build of ``source``'s loaded library (''
+    before it is loaded)."""
+    return _build_logs.get(Path(source), "")
+
+
+def _solver_args(kwargs):
+    unknown = set(kwargs) - set(_SOLVER_DEFAULTS)
+    if unknown:
+        raise TypeError("unexpected solver arguments %s; the QP kernels "
+                        "take %s" % (sorted(unknown),
+                                     sorted(_SOLVER_DEFAULTS)))
+    return dict(_SOLVER_DEFAULTS, **kwargs)
+
+
+def _check(As, Bs, X0s, mask, projection, max_k):
     """Validate the operands; return ``(R, n, k, bool mask on the
     host)``."""
     if projection not in _PROJECTIONS:
@@ -135,9 +206,9 @@ def _check(As, Bs, X0s, mask, projection):
     if As.shape != (R, k, k):
         raise ValueError("As must be (R, k, k) = %s; got %s"
                          % ((R, k, k), tuple(As.shape)))
-    if not 1 <= k <= MAX_K:
-        raise ValueError("the grouped QP kernel takes 1 <= k <= %d, got "
-                         "k = %d" % (MAX_K, k))
+    if not 1 <= k <= max_k:
+        raise ValueError("this QP kernel takes 1 <= k <= %d, got k = %d"
+                         % (max_k, k))
     dtypes = {As.dtype, Bs.dtype, X0s.dtype}
     if len(dtypes) != 1 or X0s.dtype not in (torch.float32,
                                              torch.float64):
@@ -157,12 +228,86 @@ def _check(As, Bs, X0s, mask, projection):
     return R, n, k, mask
 
 
+def _single(A, B, X0):
+    """The one-Hessian operands as a group of one."""
+    if A.ndim != 2 or B.ndim != 2 or X0.ndim != 2:
+        raise ValueError("A must be (k, k) and B, X0 (n, k); got %s, %s, "
+                         "%s" % (tuple(A.shape), tuple(B.shape),
+                                 tuple(X0.shape)))
+    return A[None], B[None], X0[None]
+
+
+def _launch(load, symbol, As, Bs, X0s, R, n, head, tail):
+    """Run the C launch function ``symbol(dtype, *head, As, Bs, X0s,
+    out, *tail, stream)`` of the library ``load()`` builds, on CUDA
+    tensors: returns ``(out, launched)``.  Raises on any other device, on
+    what the kernels do not take, and on a failed launch."""
+    if X0s.device.type != "cuda":
+        raise ValueError("the QP kernels run on CUDA tensors (or their "
+                         "plain versions on CPU ones); got %s"
+                         % X0s.device)
+    if not (As.is_contiguous() and Bs.is_contiguous()
+            and X0s.is_contiguous()):
+        raise ValueError("As, Bs and X0s must be contiguous")
+    if R > 65535:
+        raise ValueError("at most 65535 groups per launch, got %d" % R)
+    out = torch.empty_like(X0s)
+    if n == 0:
+        return out, False
+    launch_fn = getattr(load(), symbol)
+    with torch.cuda.device(X0s.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch_fn(
+            0 if X0s.dtype == torch.float32 else 1, *head,
+            As.data_ptr(), Bs.data_ptr(), X0s.data_ptr(), out.data_ptr(),
+            *tail, stream)
+    if err != 0:
+        raise RuntimeError("%s failed with code %d" % (symbol, err))
+    return out, True
+
+
+def _solve_args(kw, dtype):
+    return (int(kw["max_iterations"]), float(kw["alpha0"]),
+            int(kw["alpha_min"] <= kw["alpha0"] <= kw["alpha_max"]),
+            float(kw["alpha_min"]), float(kw["alpha_max"]),
+            float(kw["epsilon_one"]), float(kw["epsilon_two"]),
+            _bisect_steps(dtype))
+
+
+def _mask_bits(mask_h):
+    return sum(1 << j for j, on in enumerate(mask_h.tolist()) if on)
+
+
+def _packed(As, Bs, X0s, mask, projection, kwargs):
+    """K1's kernel (``csrc/simplex_qp.cu``) or, on CPU tensors, its
+    plain version.  Returns ``(out, launched)``."""
+    R, n, k, mask_h = _check(As, Bs, X0s, mask, projection, MAX_K)
+    kw = _solver_args(kwargs)
+    if X0s.device.type == "cpu":
+        return _solve_plain(As, Bs, X0s, mask_h, projection, **kw), False
+    return _launch(load_library, "simplex_qp_grouped_launch", As, Bs, X0s,
+                   R, n, (_PROJECTIONS.index(projection),),
+                   (R, n, k, _mask_bits(mask_h), *_solve_args(kw, X0s.dtype)))
+
+
+def _unpacked(As, Bs, X0s, mask, kwargs):
+    """The warp-per-row kernel (``csrc/simplex_qp_unpacked.cu``) or, on
+    CPU tensors, its plain version.  Returns ``(out, launched)``."""
+    R, n, k, mask_h = _check(As, Bs, X0s, mask, "bisect", UNPACKED_MAX_K)
+    kw = _solver_args(kwargs)
+    if X0s.device.type == "cpu":
+        return _solve_plain(As, Bs, X0s, mask_h, "bisect", **kw), False
+    bits = _mask_bits(mask_h)
+    return _launch(load_unpacked_library, "simplex_qp_unpacked_launch",
+                   As, Bs, X0s, R, n, (),
+                   (R, n, k, bits & (2 ** 64 - 1), bits >> 64,
+                    *_solve_args(kw, X0s.dtype)))
+
+
 def quad_simplex_qp_packed_grouped(As, Bs, X0s, mask=None,
-                                   projection="michelot",
-                                   max_iterations=1000, alpha0=-1.0,
-                                   alpha_min=1e-5, alpha_max=1e3,
-                                   epsilon_one=1e-10, epsilon_two=1e-6):
-    """Solve ``R`` groups of ``n`` simplex QPs, one Hessian per group.
+                                   projection="michelot", **solver_kwargs):
+    """Solve ``R`` groups of ``n`` simplex QPs, one Hessian per group
+    (K1).
 
     ``As``: (R, k, k); ``Bs``/``X0s``: (R, n, k), contiguous, one dtype
     (float32 or float64), one device; ``k <= 64``.  Returns (R, n, k).
@@ -175,47 +320,56 @@ def quad_simplex_qp_packed_grouped(As, Bs, X0s, mask=None,
     :func:`quad_simplex_qp_packed_grouped_reference`.
     """
     global LAUNCHES
-    R, n, k, mask_h = _check(As, Bs, X0s, mask, projection)
-    kwargs = dict(max_iterations=max_iterations, alpha0=alpha0,
-                  alpha_min=alpha_min, alpha_max=alpha_max,
-                  epsilon_one=epsilon_one, epsilon_two=epsilon_two)
-    if X0s.device.type == "cpu":
-        return quad_simplex_qp_packed_grouped_reference(
-            As, Bs, X0s, mask=mask, projection=projection, **kwargs)
-    if X0s.device.type != "cuda":
-        raise ValueError("the grouped QP kernel runs on CUDA tensors "
-                         "(or its plain version on CPU ones); got %s"
-                         % X0s.device)
-    if not (As.is_contiguous() and Bs.is_contiguous()
-            and X0s.is_contiguous()):
-        raise ValueError("As, Bs and X0s must be contiguous")
-    if R > 65535:
-        raise ValueError("at most 65535 groups per launch, got %d" % R)
-    out = torch.empty_like(X0s)
-    if n == 0:
-        return out
-    bits = sum(1 << j for j in range(k) if bool(mask_h[j]))
-    lib = load_library()
-    with torch.cuda.device(X0s.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.simplex_qp_grouped_launch(
-            0 if X0s.dtype == torch.float32 else 1,
-            _PROJECTIONS.index(projection),
-            As.data_ptr(), Bs.data_ptr(), X0s.data_ptr(), out.data_ptr(),
-            R, n, k, bits, int(max_iterations), float(alpha0),
-            int(alpha_min <= alpha0 <= alpha_max), float(alpha_min),
-            float(alpha_max), float(epsilon_one), float(epsilon_two),
-            _bisect_steps(X0s.dtype), stream)
-    if err != 0:
-        raise RuntimeError("simplex_qp_grouped_launch failed with code %d"
-                           % err)
-    LAUNCHES += 1
+    out, launched = _packed(As, Bs, X0s, mask, projection, solver_kwargs)
+    LAUNCHES += launched
     return out
+
+
+def quad_simplex_qp_packed(A, B, X0, mask=None, projection="michelot",
+                           **solver_kwargs):
+    """Solve ``n`` simplex QPs sharing the Hessian ``A`` (K2): K1's
+    kernel with one group.
+
+    ``A``: (k, k); ``B``/``X0``: (n, k); ``k <= 64``.  Returns (n, k).
+    Arguments as in :func:`quad_simplex_qp_packed_grouped`; CPU tensors
+    run its plain version with one group.
+    """
+    global PACKED_LAUNCHES
+    out, launched = _packed(*_single(A, B, X0), mask, projection,
+                            solver_kwargs)
+    PACKED_LAUNCHES += launched
+    return out[0]
+
+
+def quad_simplex_qp_grouped(As, Bs, X0s, mask=None, **solver_kwargs):
+    """Solve ``R`` groups of ``n`` simplex QPs, one Hessian per group,
+    with the bisection projection (K3).
+
+    Operands as in :func:`quad_simplex_qp_packed_grouped`, with
+    ``k <= 128``.  CUDA tensors run ``csrc/simplex_qp_unpacked.cu``;
+    CPU tensors run :func:`quad_simplex_qp_grouped_reference`.
+    """
+    global GROUPED_LAUNCHES
+    out, launched = _unpacked(As, Bs, X0s, mask, solver_kwargs)
+    GROUPED_LAUNCHES += launched
+    return out
+
+
+def quad_simplex_qp(A, B, X0, mask=None, **solver_kwargs):
+    """Solve ``n`` simplex QPs sharing the Hessian ``A`` with the
+    bisection projection (K4): K3's kernel with one group.
+
+    ``A``: (k, k); ``B``/``X0``: (n, k); ``k <= 128``.  Returns (n, k).
+    """
+    global UNPACKED_LAUNCHES
+    out, launched = _unpacked(*_single(A, B, X0), mask, solver_kwargs)
+    UNPACKED_LAUNCHES += launched
+    return out[0]
 
 
 def _project(x, mask, projection, k, steps):
     """Row-wise projection of ``x`` (..., k) onto the masked simplex,
-    the kernel's way (Michelot with ``k`` steps, or bisection)."""
+    the kernels' way (Michelot with ``k`` steps, or bisection)."""
     if projection == "michelot":
         act = mask.to(x.dtype).expand_as(x)
 
@@ -243,19 +397,33 @@ def _project(x, mask, projection, k, steps):
 
 def quad_simplex_qp_packed_grouped_reference(As, Bs, X0s, mask=None,
                                              projection="michelot",
-                                             max_iterations=1000,
-                                             alpha0=-1.0, alpha_min=1e-5,
-                                             alpha_max=1e3,
-                                             epsilon_one=1e-10,
-                                             epsilon_two=1e-6):
-    """Plain PyTorch version of the grouped QP kernel, on any device.
+                                             **solver_kwargs):
+    """Plain PyTorch version of K1 (and of K2 with one group), on any
+    device.
 
     Same operands, result and stopping rule as
     :func:`quad_simplex_qp_packed_grouped`.  Every row carries its own
     active flag; a converged row is frozen (step 0, alpha unchanged), so
     its result does not depend on the other rows.
     """
-    R, n, k, mask_h = _check(As, Bs, X0s, mask, projection)
+    _, _, _, mask_h = _check(As, Bs, X0s, mask, projection, MAX_K)
+    return _solve_plain(As, Bs, X0s, mask_h, projection,
+                        **_solver_args(solver_kwargs))
+
+
+def quad_simplex_qp_grouped_reference(As, Bs, X0s, mask=None,
+                                      **solver_kwargs):
+    """Plain PyTorch version of K3 (and of K4 with one group): the loop
+    of :func:`quad_simplex_qp_packed_grouped_reference` with the
+    bisection projection and ``k <= 128``."""
+    _, _, _, mask_h = _check(As, Bs, X0s, mask, "bisect", UNPACKED_MAX_K)
+    return _solve_plain(As, Bs, X0s, mask_h, "bisect",
+                        **_solver_args(solver_kwargs))
+
+
+def _solve_plain(As, Bs, X0s, mask_h, projection, *, max_iterations,
+                 alpha0, alpha_min, alpha_max, epsilon_one, epsilon_two):
+    R, n, k = X0s.shape
     dtype = X0s.dtype
     mask = mask_h.to(X0s.device)
     steps = _bisect_steps(dtype)

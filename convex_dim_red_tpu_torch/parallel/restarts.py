@@ -6,15 +6,16 @@ in fixed-width ``(R, ...)`` tensors on the device for the whole fit:
 ``Z (R, n, k)``, ``C (R, k, n)``, ``alpha (R, k)``.  Restarts run in
 bounded rounds; each round gathers a chunk of the restarts still
 iterating, advances it with the weights QP of every restart solved in
-one grouped kernel launch per iteration (:func:`_aa_grouped_iterate`),
-and scatters the states back.  After each round the converged restarts
+one grouped call per iteration (:func:`_aa_grouped_iterate`), and
+scatters the states back.  After each round the converged restarts
 retire and the survivors are re-packed into dense chunks.  The host
 sees only the per-chunk scheduler scalars, fetched once per chunk and
-round.
+round.  The initial dictionaries are random or picked by FurthestSum on
+the device, one start index per restart.
 
-FurthestSum initialisation, screening, padded ``k``, the one-shot
-grouped runner, ``KernelAA``'s kernel-input fits and meshes are later
-slices of the port (ROADMAP.md, queue 1).
+Screening, padded ``k``, the one-shot grouped runner, ``KernelAA``'s
+kernel-input fits and meshes are later slices of the port (ROADMAP.md,
+queue 1).
 """
 
 import numpy as np
@@ -24,9 +25,12 @@ from ..models._common import (QPSolverConfig, SPGSolverConfig,
                               STOPPING_CRITERIA, make_config)
 from ..models.archetypal_analysis import (_cost_from_parts, _scalar_dtype,
                                           _spg_cfg_to_quad_kwargs)
+from ..ops.furthest_sum import (dissimilarities_from_kernel,
+                                furthest_sum_device)
 from ..ops.simplex_projection import simplex_project_rows
 from ..ops.stochastic_matrices import right_stochastic_matrix
-from ..solvers.spg import quad_simplex_spg_batch_grouped, quad_spg
+from ..solvers.spg import (quad_simplex_spg_batch_grouped, quad_spg,
+                           resolve_qp_backend)
 from ..utils.precision import apply_matmul_precision
 from .sharded_aa import _keep_best_loop
 
@@ -34,13 +38,26 @@ __all__ = ["aa_fit_restarts"]
 
 
 def _init_aa_state(generator, n_init, delta, *, n_samples, n_components,
-                   do_scale, dtype, device):
-    """Random initial states of ``n_init`` restarts: row-stochastic
-    ``Z (R, n, k)`` and ``C (R, k, n)``, and ``alpha (R, k)`` uniform in
-    ``[1 - delta, 1 + delta]`` (ones without scale factors).  Matches the
-    JAX package's ``init='random'`` in distribution."""
-    C = right_stochastic_matrix(generator, (n_init, n_components, n_samples),
-                                dtype=dtype, device=device)
+                   init, diss, n_extra_steps, do_scale, dtype, device):
+    """Initial states of ``n_init`` restarts: row-stochastic
+    ``Z (R, n, k)``, ``C (R, k, n)`` and ``alpha (R, k)`` uniform in
+    ``[1 - delta, 1 + delta]`` (ones without scale factors).  With
+    ``init='furthest_sum'`` each restart draws a start index and ``C``
+    is one-hot on the samples that :func:`furthest_sum_device` picks
+    from the dissimilarities ``diss``; with ``'random'`` ``C`` is
+    random.  Matches the JAX package's ``_init_aa_state`` in
+    distribution."""
+    if init == 'furthest_sum':
+        starts = torch.randint(0, n_samples, (n_init,),
+                               generator=generator,
+                               device=generator.device).to(device)
+        selected = furthest_sum_device(diss, n_components, starts,
+                                       extra_steps=n_extra_steps)
+        C = torch.nn.functional.one_hot(selected, n_samples).to(dtype)
+    else:
+        C = right_stochastic_matrix(
+            generator, (n_init, n_components, n_samples), dtype=dtype,
+            device=device)
     Z = right_stochastic_matrix(generator, (n_init, n_samples, n_components),
                                 dtype=dtype, device=device)
     if do_scale:
@@ -132,7 +149,7 @@ def _aa_grouped_iterate(X, K, *, delta, do_scale, has_data, dict_kwargs,
 
 
 def _grouped_solver_kwargs(dict_cfg, weights_cfg, scale_cfg):
-    return (_spg_cfg_to_quad_kwargs(dict_cfg), weights_cfg.kernel_kwargs(),
+    return (_spg_cfg_to_quad_kwargs(dict_cfg), weights_cfg.kwargs(),
             _spg_cfg_to_quad_kwargs(scale_cfg))
 
 
@@ -250,20 +267,23 @@ def _compacted_best(R, states_all, *, max_iterations, restart_chunk,
 
 @apply_matmul_precision
 def _compacted_aa_best(X, states, delta, tolerance, *, statics,
-                       grouped_backend, restart_chunk, round_iterations):
+                       grouped_backend, restart_chunk, round_iterations,
+                       gram=None):
     """Multi-restart AA with convergence compaction, from given initial
     states ``(Zs, Cs, alphas)`` (see :func:`_compacted_best`).
 
     ``statics`` holds ``max_iterations``, ``criterion``, ``do_scale``,
-    ``has_data`` and the three solver configs.  The initial states are
-    not modified.  Returns ``(best, costs, n_iters)`` with ``best = (Z,
-    C, alpha, trace, best_cost, best_n_iter)``.
+    ``has_data`` and the three solver configs; ``gram`` is ``X X'`` if
+    the caller already has it.  The initial states are not modified.
+    Returns ``(best, costs, n_iters)`` with ``best = (Z, C, alpha,
+    trace, best_cost, best_n_iter)``.
     """
     has_data = statics['has_data']
     dict_kwargs, weights_kwargs, scale_kwargs = _grouped_solver_kwargs(
         statics['dict_cfg'], statics['weights_cfg'], statics['scale_cfg'])
     # Gram once per fit: every round takes it device-resident.
-    gram = _gram_once(X) if has_data else X
+    if gram is None:
+        gram = _gram_once(X) if has_data else X
     run = _make_aa_grouped_round_run(
         X, gram, criterion=statics['criterion'],
         do_scale=statics['do_scale'], has_data=has_data, delta=delta,
@@ -289,7 +309,8 @@ def _compacted_aa_best(X, states, delta, tolerance, *, statics,
 @apply_matmul_precision
 def aa_fit_restarts(data, n_components, generator, n_init, delta=0.0,
                     init='furthest_sum', tolerance=1e-6,
-                    max_iterations=500, stopping_criterion='abs_delta_f',
+                    max_iterations=500, n_extra_steps=10,
+                    stopping_criterion='abs_delta_f',
                     dictionary_solver_kwargs=None,
                     weights_solver_kwargs=None,
                     scale_factors_solver_kwargs=None,
@@ -304,15 +325,19 @@ def aa_fit_restarts(data, n_components, generator, n_init, delta=0.0,
     ``compact_iterations`` iterations, chunks of ``restart_chunk``
     restarts (see :func:`_compacted_best`).
 
+    ``init``: 'furthest_sum' (on the device, ``n_extra_steps``
+    refinement passes) or 'random'.  The weights QPs of a chunk run in
+    one grouped call; ``weights_solver_kwargs['backend']`` 'auto'
+    resolves with the JAX package's grouped-fit rule: the kernels on a
+    CUDA device (k <= 128), the row solver on the CPU.
+
     Returns a dict with the best restart's ``weights``, ``dictionary``,
     ``alpha``, ``archetypes`` (tensors), ``cost`` and ``n_iter``, its
     ``cost_deltas``, and ``costs``, ``n_iters`` and ``best_index`` over
     all restarts (numpy).
 
-    This slice of the port runs ``init='random'`` with compaction only;
-    the other options raise ``ValueError`` naming the ROADMAP.md item
-    that ports them.  The default ``init`` is the JAX package's
-    ('furthest_sum'), so it must be given.
+    This slice of the port runs with compaction only; the other options
+    raise ``ValueError`` naming the ROADMAP.md item that ports them.
     """
     if mesh is not None:
         raise ValueError("mesh= is not ported yet (ROADMAP.md queue 1, "
@@ -327,9 +352,8 @@ def aa_fit_restarts(data, n_components, generator, n_init, delta=0.0,
         raise ValueError("only the compacted scheduler is ported; pass "
                          "compact_iterations (the one-shot grouped runner "
                          "is ROADMAP.md queue 1, item 11)")
-    if init != 'random':
-        raise ValueError("init=%r is not ported yet; use init='random' "
-                         "(FurthestSum is ROADMAP.md queue 1, item 10)"
+    if init not in ('random', 'furthest_sum'):
+        raise ValueError("init must be 'random' or 'furthest_sum', got %r"
                          % (init,))
     if stopping_criterion not in STOPPING_CRITERIA:
         raise ValueError("unsupported stopping criterion %r"
@@ -347,18 +371,26 @@ def aa_fit_restarts(data, n_components, generator, n_init, delta=0.0,
     scale_cfg = make_config(SPGSolverConfig, scale_factors_solver_kwargs)
     do_scale = float(delta) != 0.0
 
+    gram = diss = None
+    if init == 'furthest_sum':
+        gram = _gram_once(X)
+        diss = dissimilarities_from_kernel(gram)
     states = _init_aa_state(
         generator, int(n_init), float(delta), n_samples=X.shape[0],
-        n_components=int(n_components), do_scale=do_scale,
+        n_components=int(n_components), init=init, diss=diss,
+        n_extra_steps=int(n_extra_steps), do_scale=do_scale,
         dtype=X.dtype, device=X.device)
     statics = dict(max_iterations=int(max_iterations),
                    criterion=stopping_criterion, do_scale=do_scale,
                    has_data=True, dict_cfg=dict_cfg,
                    weights_cfg=weights_cfg, scale_cfg=scale_cfg)
+    grouped_backend = resolve_qp_backend(
+        weights_cfg.backend, k=int(n_components), regime='sharded_fit',
+        device=X.device)
     best, costs, n_iters = _compacted_aa_best(
         X, states, float(delta), float(tolerance), statics=statics,
-        grouped_backend=weights_cfg.backend, restart_chunk=restart_chunk,
-        round_iterations=int(compact_iterations))
+        grouped_backend=grouped_backend, restart_chunk=restart_chunk,
+        round_iterations=int(compact_iterations), gram=gram)
 
     Z, C, alpha, trace, best_cost, n_iter_best = best
     dictionary = alpha[:, None] * C if do_scale else C

@@ -1,31 +1,44 @@
-"""Projected spectral gradient (SPG) QP solvers, batched over restarts.
+"""Projected spectral gradient (SPG) QP solvers, batched.
 
-Port of the two solvers of convex_dim_red_tpu/solvers/spg.py that the
-multi-restart AA fit runs:
+Port of the QP solvers of convex_dim_red_tpu/solvers/spg.py (the
+generic ``spg`` is a later slice, ROADMAP.md queue 1 item 14):
 
 - :func:`quad_spg`, the operator-form QP solver with the closed-form
-  exact line search.  The JAX package ``vmap``s it over restarts; here
-  the restart axis is the leading axis of every operand, every sum and
-  max runs over the other axes (one scalar step per restart), and a
-  per-restart ``done`` mask freezes finished members exactly as a
-  vmapped ``while_loop`` does.
-- :func:`quad_simplex_spg_batch_grouped`, the dispatch of the
-  restart-grouped weights QPs to the hand-written kernel
-  (ops/simplex_qp.py).
+  exact line search.  The JAX package ``vmap``s it over restarts or
+  rows; here the batch axis is the leading axis of every operand, every
+  sum and max runs over the other axes (one scalar step per batch
+  member), and a per-member ``done`` mask freezes finished members
+  exactly as a vmapped ``while_loop`` does.
+- :func:`quad_simplex_spg`, the simplex row solver (the JAX package's
+  'xla' backend): :func:`quad_spg` over a batch of rows.
+- :func:`quad_simplex_spg_batch` and
+  :func:`quad_simplex_spg_batch_grouped`, the dispatch of a batch of
+  simplex QPs (one Hessian, or one per group) to the hand-written
+  kernels of ops/simplex_qp.py or to the row solver, and
+  :func:`resolve_qp_backend`, which picks between them for
+  ``backend='auto'``.
 
 The two stop on different rules, and both are kept: ``quad_spg`` tests
-the residual at alpha = 1 with a second projection; the kernel tests
+the residual at alpha = 1 with a second projection; the kernels test
 ``||D|| < eps * min(alpha, 1)`` with none.
 """
 
 import torch
 
-from ..ops.simplex_qp import MAX_K, quad_simplex_qp_packed_grouped
+from ..ops.simplex_projection import (simplex_project_masked,
+                                      simplex_project_rows)
+from ..ops.simplex_qp import (MAX_K, UNPACKED_MAX_K, quad_simplex_qp,
+                              quad_simplex_qp_grouped,
+                              quad_simplex_qp_packed,
+                              quad_simplex_qp_packed_grouped)
 from ..utils.precision import apply_matmul_precision
 
 __all__ = [
     "quad_spg",
+    "quad_simplex_spg",
+    "quad_simplex_spg_batch",
     "quad_simplex_spg_batch_grouped",
+    "resolve_qp_backend",
     "cauchy_step_size",
 ]
 
@@ -135,35 +148,162 @@ def quad_spg(matvec, B, x0, project, alpha0=-1.0,
     return project(x)
 
 
+def resolve_qp_backend(backend, k=None, regime="oneshot", device=None):
+    """Resolve a ``backend='auto'`` weights-QP backend choice.
+
+    The JAX package's rule (its docstring has the TPU measurements that
+    set it), with a CUDA device in the TPU's place:
+
+    - ``regime='oneshot'`` (a cold QP batch solved once: transforms,
+      direct ``quad_simplex_spg_batch`` calls) and ``'sharded_fit'``
+      (the restart-grouped fits): ``'pallas'``, the hand-written
+      kernels, when ``device`` is a CUDA device and ``k`` (if given)
+      is at most 128;
+    - ``regime='fit'`` (warm-started QPs inside a single alternating
+      fit): ``'xla'``, the row solver;
+    - any other device, ``None`` included: ``'xla'``.
+
+    Non-'auto' values pass through untouched.  Whether the fit-regime
+    default also holds on the H100 is measured by ``chip_smoke.py``
+    (PERF.md).
+    """
+    if regime not in ("oneshot", "fit", "sharded_fit"):
+        raise ValueError("unknown QP dispatch regime %r" % (regime,))
+    if backend != "auto":
+        return backend
+    if regime == "fit":
+        return "xla"
+    if device is None or torch.device(device).type != "cuda":
+        return "xla"
+    if k is not None and k > UNPACKED_MAX_K:
+        return "xla"
+    return "pallas"
+
+
 @apply_matmul_precision
-def quad_simplex_spg_batch_grouped(As, Bs, X0s, backend="auto", mask=None,
-                                   projection="michelot",
-                                   max_iterations=1000, alpha0=-1.0,
-                                   alpha_min=1e-5, alpha_max=1e3,
-                                   epsilon_one=1e-10, epsilon_two=1e-6):
+def quad_simplex_spg(A, b, x0, gamma=1e-4, memory=1,
+                     sigma_one=0.1, sigma_two=0.9, lambda_min=1e-10,
+                     alpha0=-1.0, alpha_min=1e-5, alpha_max=1e3,
+                     epsilon_one=1e-10, epsilon_two=1e-6,
+                     max_iterations=1000, max_feval=2000, mask=None):
+    """Solve ``min 1/2 x'Ax + b'x`` over the simplex for a batch of rows.
+
+    ``x0``/``b``: ``(..., n, k)``, one QP per row; ``A``: ``(k, k)``
+    shared by all rows, or ``(..., k, k)`` with the same leading axes as
+    ``b`` (one Hessian per group of ``n`` rows).  Returns the solutions,
+    shaped like ``x0``.
+
+    The JAX function solves one row and is ``vmap``ped; here every row
+    is a member of one :func:`quad_spg` batch, with its own step size,
+    line search, stopping test and freeze, so each row's result is the
+    JAX row's.  ``matvec`` is ``x @ A'`` (the JAX function's ``A @
+    x``), the projection :func:`simplex_project_rows` or, with ``mask``
+    ((k,) bool), its masked form, and the iteration cap
+    ``min(max_iterations, max_feval)``.  The nonmonotone line-search
+    parameters are accepted for API parity and unused (see the JAX
+    function).
+    """
+    del gamma, memory, sigma_one, sigma_two, lambda_min  # parity only
+
+    shape = x0.shape
+    k = shape[-1]
+    if A.ndim == 2:
+        def matvec(x):
+            return x @ A.T
+    else:
+        def matvec(x):
+            return torch.matmul(x.reshape(shape), A.transpose(-2, -1)) \
+                .reshape(-1, k)
+    if mask is None:
+        project = simplex_project_rows
+    else:
+        mask = torch.as_tensor(mask, dtype=torch.bool, device=x0.device)
+
+        def project(x):
+            return simplex_project_masked(x, mask)
+
+    x = quad_spg(matvec, -b.reshape(-1, k), x0.reshape(-1, k), project,
+                 alpha0=alpha0, alpha_min=alpha_min, alpha_max=alpha_max,
+                 epsilon_one=epsilon_one, epsilon_two=epsilon_two,
+                 max_iterations=min(max_iterations, max_feval))
+    return x.reshape(shape)
+
+
+def _kernel_kwargs(solver_kwargs):
+    """The arguments the QP kernels take, out of a row-solver kwargs
+    dict (the JAX package's ``_pallas_qp_kwargs``)."""
+    return {k: v for k, v in solver_kwargs.items()
+            if k in ("max_iterations", "alpha0", "alpha_min",
+                     "alpha_max", "epsilon_one", "epsilon_two")}
+
+
+def _check_projection(projection, k):
+    """``projection`` is checked up front, on every backend: the JAX
+    dispatch passes it on to the unpacked kernels, which do not take it,
+    and raises ``TypeError`` there."""
+    if projection not in (None, "michelot", "bisect"):
+        raise ValueError("projection must be None, 'michelot' or "
+                         "'bisect', got %r" % (projection,))
+    if projection == "michelot" and k > MAX_K:
+        raise ValueError(
+            "projection='michelot' runs in the packed QP kernels, which "
+            "take k <= %d; k = %d runs the unpacked kernels, which "
+            "bisect: pass projection=None or 'bisect'" % (MAX_K, k))
+
+
+def _dispatch(As, Bs, X0s, backend, mask, projection, solver_kwargs,
+              packed, unpacked):
+    """Run ``packed`` (k <= 64) or ``unpacked`` (to 128) for 'pallas',
+    the row solver for 'xla', after resolving 'auto' as a one-shot
+    solve."""
+    k = X0s.shape[-1]
+    _check_projection(projection, k)
+    backend = resolve_qp_backend(backend, k=k, device=X0s.device)
+    if backend == "pallas":
+        args = (As.contiguous(), Bs.contiguous(), X0s.contiguous())
+        keep = _kernel_kwargs(solver_kwargs)
+        if k <= MAX_K:
+            return packed(*args, mask=mask,
+                          projection=projection or "michelot", **keep)
+        return unpacked(*args, mask=mask, **keep)
+    if backend != "xla":
+        raise ValueError("unknown QP backend %r" % (backend,))
+    return quad_simplex_spg(As, Bs, X0s, mask=mask, **solver_kwargs)
+
+
+@apply_matmul_precision
+def quad_simplex_spg_batch(A, B, X0, backend="xla", mask=None,
+                           projection=None, **solver_kwargs):
+    """Solve ``n`` simplex QPs ``min 1/2 x'Ax + b'x`` sharing the
+    Hessian ``A``.
+
+    ``A``: (k, k); ``B``/``X0``: (n, k).  Returns (n, k).
+    ``backend``: 'xla' runs the row solver :func:`quad_simplex_spg`;
+    'pallas' runs a hand-written kernel (ops/simplex_qp.py), K2 for
+    ``k <= 64`` and K4 up to 128 (the kernel's plain version on CPU
+    tensors); 'auto' resolves as a cold one-shot solve
+    (:func:`resolve_qp_backend`).  ``mask`` ((k,) bool) pins masked
+    coordinates to zero.  ``projection`` (kernels only): None (Michelot
+    at ``k <= 64``, bisection above), 'michelot' (``k <= 64``) or
+    'bisect'.  ``solver_kwargs`` are :func:`quad_simplex_spg`'s; the
+    kernels take the subset they know.
+    """
+    return _dispatch(A, B, X0, backend, mask, projection, solver_kwargs,
+                     quad_simplex_qp_packed, quad_simplex_qp)
+
+
+@apply_matmul_precision
+def quad_simplex_spg_batch_grouped(As, Bs, X0s, backend="xla", mask=None,
+                                   projection=None, **solver_kwargs):
     """Solve ``R`` groups of simplex QPs ``min 1/2 x'Ax + b'x``, one
     Hessian per group.
 
     ``As``: (R, k, k); ``Bs``/``X0s``: (R, n, k).  Returns (R, n, k).
-    ``backend`` 'auto' or 'pallas' runs the grouped kernel
-    (ops/simplex_qp.py): the CUDA kernel for CUDA tensors, its plain
-    PyTorch version for CPU tensors.  ``mask`` ((k,) bool, shared
-    across groups) pins masked coordinates to zero; ``projection`` is
-    'michelot' or 'bisect'.
+    The restart-grouped form of :func:`quad_simplex_spg_batch`, with the
+    same arguments: 'pallas' runs K1 for ``k <= 64`` and K3 up to 128,
+    'xla' the row solver, 'auto' resolves as a one-shot solve.
+    ``mask`` is shared across groups.
     """
-    if backend == "xla":
-        raise NotImplementedError(
-            "the vmapped XLA row solver (quad_simplex_spg) is not ported "
-            "yet (ROADMAP.md queue 1, item 5); use backend='auto'")
-    if backend not in ("auto", "pallas"):
-        raise ValueError("unknown QP backend %r" % (backend,))
-    k = X0s.shape[-1]
-    if k > MAX_K:
-        raise NotImplementedError(
-            "k = %d > %d needs the unpacked grouped kernel, which is not "
-            "ported yet (ROADMAP.md queue 2, K3)" % (k, MAX_K))
-    return quad_simplex_qp_packed_grouped(
-        As.contiguous(), Bs.contiguous(), X0s.contiguous(), mask=mask,
-        projection=projection, max_iterations=max_iterations,
-        alpha0=alpha0, alpha_min=alpha_min, alpha_max=alpha_max,
-        epsilon_one=epsilon_one, epsilon_two=epsilon_two)
+    return _dispatch(As, Bs, X0s, backend, mask, projection, solver_kwargs,
+                     quad_simplex_qp_packed_grouped,
+                     quad_simplex_qp_grouped)

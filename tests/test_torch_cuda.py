@@ -1,5 +1,6 @@
-"""The grouped simplex-QP CUDA kernel against its plain version, on the
-card.
+"""The simplex-QP CUDA kernels against their plain versions, on the
+card: K1 and K2 (csrc/simplex_qp.cu), K3 and K4
+(csrc/simplex_qp_unpacked.cu).
 
 Marked ``cuda``: the kernel has no CPU mode, so these tests skip where
 no CUDA device is found.  tests/conftest.py imports JAX, which a GPU
@@ -122,10 +123,13 @@ def test_fit_on_card_matches_cpu(cuda):
     # devices decay instead of growing (on Gaussian data they reach
     # 1e-6 in the cost by the iteration cap).
     X = torch.as_tensor(_planted(0, 300, 40, 6, 0.01))
+    # backend='pallas' on both devices: 'auto' resolves to the row
+    # solver on the CPU, which stops on another rule.
     kw = dict(init='random', tolerance=1e-6, max_iterations=200,
               stopping_criterion='rel_delta_f',
               dictionary_solver_kwargs={'max_iterations': 1},
-              weights_solver_kwargs={'max_iterations': 25},
+              weights_solver_kwargs={'max_iterations': 25,
+                                     'backend': 'pallas'},
               restart_chunk=4, compact_iterations=32)
     res = {dev: aa_fit_restarts(X.to(dev), 6,
                                 torch.Generator().manual_seed(0), 8, **kw)
@@ -134,3 +138,88 @@ def test_fit_on_card_matches_cpu(cuda):
                                rtol=1e-6)
     np.testing.assert_array_equal(res[cuda]["n_iters"],
                                   res["cpu"]["n_iters"])
+
+
+def _unpacked_both(args, **kw):
+    got = simplex_qp.quad_simplex_qp_grouped(*args, **kw)
+    want = simplex_qp.quad_simplex_qp_grouped_reference(*args, **kw)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("k", [1, 6, 32, 33, 64, 65, 96, 97, 128])
+def test_unpacked_first_iterations_match_plain(cuda, k, masked):
+    # Every lane count (NC = 1..4) and the edges between them, float64.
+    args = _problem(k, 3, 257, k, torch.float64, cuda)
+    mask = (np.arange(k) % 7 != 3) if masked and k > 3 else None
+    got, want = _unpacked_both(args, max_iterations=3, mask=mask)
+    assert float((got - want).abs().max()) <= 1e-12
+    if mask is not None:
+        off = torch.as_tensor(~mask, device=got.device)
+        assert bool((got[:, :, off] == 0).all())
+
+
+@pytest.mark.parametrize("R,n,k,dtype", [
+    (3, 257, 100, torch.float64), (1, 300, 128, torch.float64),
+    (4, 1788, 96, torch.float32), (1, 1788, 6, torch.float32)])
+def test_unpacked_converged_matches_plain(cuda, R, n, k, dtype):
+    # (1, 300, 128) float64 holds a 128 KiB Hessian in shared memory.
+    args = _problem(R + k, R, n, k, dtype, cuda)
+    got, want = _unpacked_both(args, max_iterations=1000)
+    f_got, f_want = _objective(got, *args[:2]), _objective(want, *args[:2])
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert float(((f_got - f_want).abs() / (1 + f_want.abs())).max()) <= tol
+    if dtype == torch.float64:
+        # Bisection near-ties stop a row a step apart (see chip_smoke.py).
+        assert float((got - want).abs().max()) <= 1e-7
+    assert float((got.double().sum(dim=2) - 1).abs().max()) <= 1e-5
+    assert float(got.min()) >= 0.0
+
+
+@pytest.mark.parametrize("projection", ["michelot", "bisect"])
+def test_packed_single_hessian_is_k1_at_one_group(cuda, projection):
+    A, B, X0 = (t[0] for t in _problem(4, 1, 1788, 6, torch.float32, cuda))
+    got = simplex_qp.quad_simplex_qp_packed(A, B, X0, projection=projection,
+                                            max_iterations=25)
+    want = simplex_qp.quad_simplex_qp_packed_grouped(
+        A[None], B[None], X0[None], projection=projection,
+        max_iterations=25)[0]
+    plain = simplex_qp.quad_simplex_qp_packed_grouped_reference(
+        A[None], B[None], X0[None], projection=projection,
+        max_iterations=25)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    f_got = _objective(got[None], A[None], B[None])
+    f_plain = _objective(plain[None], A[None], B[None])
+    assert float(((f_got - f_plain).abs() / (1 + f_plain.abs())).max()) \
+        <= 1e-5
+
+
+def test_unpacked_single_hessian_is_k3_at_one_group(cuda):
+    A, B, X0 = (t[0] for t in _problem(5, 1, 500, 100, torch.float64, cuda))
+    got = simplex_qp.quad_simplex_qp(A, B, X0, max_iterations=1000)
+    want = simplex_qp.quad_simplex_qp_grouped(A[None], B[None], X0[None],
+                                              max_iterations=1000)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_every_wrapper_counts_its_own_launches(cuda):
+    As, Bs, X0s = _problem(6, 2, 100, 70, torch.float32, cuda)
+    names = ("LAUNCHES", "PACKED_LAUNCHES", "GROUPED_LAUNCHES",
+             "UNPACKED_LAUNCHES")
+    before = [getattr(simplex_qp, name) for name in names]
+    simplex_qp.quad_simplex_qp_grouped(As, Bs, X0s, max_iterations=5)
+    simplex_qp.quad_simplex_qp(As[0], Bs[0], X0s[0], max_iterations=5)
+    simplex_qp.quad_simplex_qp(As[0], Bs[0], X0s[0], max_iterations=5)
+    small = tuple(t[..., :6, :6] if t is As else t[..., :6]
+                  for t in (As, Bs, X0s))
+    small = tuple(t.contiguous() for t in small)
+    simplex_qp.quad_simplex_qp_packed(*(t[0] for t in small),
+                                      max_iterations=5)
+    simplex_qp.quad_simplex_qp_grouped_reference(As, Bs, X0s,
+                                                 max_iterations=5)
+    torch.cuda.synchronize()
+    after = [getattr(simplex_qp, name) for name in names]
+    assert [a - b for a, b in zip(after, before)] == [0, 1, 1, 2]

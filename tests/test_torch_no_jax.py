@@ -22,12 +22,16 @@ _SCRIPT = textwrap.dedent("""
     import convex_dim_red_tpu_torch as cdr
     X = torch.as_tensor(np.random.RandomState(0).standard_normal((20, 4)))
     res = cdr.aa_fit_restarts(
-        X, 2, 0, 3, init='random', max_iterations=10,
+        X, 2, 0, 3, max_iterations=10,
         weights_solver_kwargs={'max_iterations': 5},
         dictionary_solver_kwargs={'max_iterations': 1},
         compact_iterations=4)
     assert res['weights'].shape == (20, 2)
     assert np.isfinite(res['cost'])
+    model = cdr.ArchetypalAnalysis(2, random_state=0, max_iterations=10)
+    model.fit(X)
+    weights, cost = model.transform(X)
+    assert weights.shape == (20, 2) and np.isfinite(cost)
     # The blocked names stay None; the JAX package is never imported.
     loaded = [m for m, mod in sys.modules.items() if mod is not None
               and m.split('.')[0] in ('jax', 'jaxlib',

@@ -231,7 +231,7 @@ def test_scale_factors_fit_keeps_alpha_in_its_box():
 @pytest.mark.parametrize("bad", [
     dict(mesh=object()), dict(screen_iterations=10),
     dict(pad_components_to=4), dict(compact_iterations=None),
-    dict(init='furthest_sum'), dict(stopping_criterion='delta_x'),
+    dict(init='custom'), dict(stopping_criterion='delta_x'),
     dict(n_init=0),
     dict(weights_solver_kwargs={'max_iteration': 5})])
 def test_rejects_what_is_not_ported(bad):
@@ -242,14 +242,33 @@ def test_rejects_what_is_not_ported(bad):
 
 
 def test_default_init_is_not_ported_yet():
-    with pytest.raises(ValueError, match="FurthestSum"):
-        trestarts.aa_fit_restarts(torch.as_tensor(_data()), K, 0, 2,
-                                  compact_iterations=8)
+    # FurthestSum is ported now and is the default init, as in JAX: each
+    # restart's dictionary is one-hot on the samples that the device
+    # FurthestSum picks from its own start index.
+    X = torch.as_tensor(_data())
+    res = trestarts.aa_fit_restarts(
+        X, K, 0, 3, dictionary_solver_kwargs=DICT_KW,
+        weights_solver_kwargs=WEIGHTS_KW, compact_iterations=8, **FIT)
+    assert np.isfinite(res['cost']) and res['weights'].shape == (N, K)
+    gen = torch.Generator().manual_seed(0)
+    states = trestarts._init_aa_state(
+        gen, 3, 0.0, n_samples=N, n_components=K, init='furthest_sum',
+        diss=torch.cdist(X, X), n_extra_steps=10, do_scale=False,
+        dtype=X.dtype, device=X.device)
+    C = states[1]
+    assert C.shape == (3, K, N)
+    assert torch.equal(C.sum(dim=2), torch.ones(3, K, dtype=X.dtype))
+    assert torch.equal(C.amax(dim=2), torch.ones(3, K, dtype=X.dtype))
 
 
 def test_xla_weights_backend_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        trestarts.aa_fit_restarts(
-            torch.as_tensor(_data()), K, 0, 2, init='random',
-            dictionary_solver_kwargs=DICT_KW,
-            weights_solver_kwargs={'backend': 'xla'}, compact_iterations=8)
+    # The row solver is ported now: backend='xla' runs it, and 'auto'
+    # resolves to it on the CPU (the JAX rule), with the same fit.
+    kw = dict(init='random', dictionary_solver_kwargs=DICT_KW,
+              compact_iterations=8, max_iterations=10)
+    X = torch.as_tensor(_data())
+    xla = trestarts.aa_fit_restarts(
+        X, K, 0, 2, weights_solver_kwargs={'backend': 'xla'}, **kw)
+    auto = trestarts.aa_fit_restarts(X, K, 0, 2, **kw)
+    np.testing.assert_array_equal(xla['costs'], auto['costs'])
+    assert np.all(np.isfinite(xla['costs']))

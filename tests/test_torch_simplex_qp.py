@@ -168,17 +168,22 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
 
 
 def test_dispatch_backends():
+    # 'pallas' runs the kernel (its plain version on CPU tensors); 'auto'
+    # on a CPU tensor and 'xla' run the row solver, as in JAX; k > 64
+    # runs the unpacked grouped kernel.
     As, Bs, X0s = (torch.as_tensor(v) for v in _problem(7, 2, 9, 4))
-    for backend in ("auto", "pallas"):
-        out = quad_simplex_spg_batch_grouped(As, Bs, X0s, backend=backend,
-                                             max_iterations=40)
-        assert torch.equal(out, quad_simplex_qp_packed_grouped_reference(
-            As, Bs, X0s, max_iterations=40))
-    with pytest.raises(NotImplementedError):
-        quad_simplex_spg_batch_grouped(As, Bs, X0s, backend="xla")
+    out = quad_simplex_spg_batch_grouped(As, Bs, X0s, backend="pallas",
+                                         max_iterations=40)
+    assert torch.equal(out, quad_simplex_qp_packed_grouped_reference(
+        As, Bs, X0s, max_iterations=40))
+    xla = quad_simplex_spg_batch_grouped(As, Bs, X0s, backend="xla",
+                                         max_iterations=40)
+    assert torch.equal(quad_simplex_spg_batch_grouped(
+        As, Bs, X0s, backend="auto", max_iterations=40), xla)
     with pytest.raises(ValueError):
         quad_simplex_spg_batch_grouped(As, Bs, X0s, backend="tpu")
     As, Bs, X0s = (torch.as_tensor(v) for v in _problem(8, 1, 3, 65))
-    with pytest.raises(NotImplementedError):
-        quad_simplex_spg_batch_grouped(As, Bs, X0s)
-
+    out = quad_simplex_spg_batch_grouped(As, Bs, X0s, backend="pallas",
+                                         max_iterations=40)
+    assert torch.equal(out, simplex_qp.quad_simplex_qp_grouped_reference(
+        As, Bs, X0s, max_iterations=40))

@@ -131,9 +131,9 @@ def test_make_config_takes_the_jax_kwargs():
     kw = {'backend': 'pallas', 'max_iterations': 25}
     cfg = tcommon.make_config(tcommon.QPSolverConfig, kw)
     jcfg = jcommon.make_config(jcommon.QPSolverConfig, kw)
-    assert cfg.kernel_kwargs() == {
-        name: getattr(jcfg, name)
-        for name in ('max_iterations', 'alpha0', 'alpha_min', 'alpha_max',
-                     'epsilon_one', 'epsilon_two')}
+    assert cfg.kwargs() == jcfg.kwargs()
+    assert cfg.backend == jcfg.backend
+    assert (tcommon.SPGSolverConfig().kwargs()
+            == jcommon.SPGSolverConfig().kwargs())
     with pytest.raises(ValueError):
         tcommon.make_config(tcommon.SPGSolverConfig, {'max_iter': 1})
