@@ -12,41 +12,53 @@ the run with a non-zero exit and no result line:
 1. Device: needs ``torch.cuda.is_available()``; prints the torch, CUDA
    and nvcc versions and the card's name and power limit.
 2. Build: compiles ``convex_dim_red_tpu_torch/csrc/simplex_qp.cu`` (K1,
-   K2) and ``simplex_qp_unpacked.cu`` (K3, K4) with two nvcc processes
-   at once and prints ptxas's register, spill and shared-memory report.
-3. K1 against its plain PyTorch version on the card: float32 at the
+   K2; once per dtype) and ``simplex_qp_unpacked.cu`` (K3, K4) with
+   three nvcc processes at once, prints ptxas's register, spill and
+   shared-memory report and fails if any kernel has a stack frame or
+   spills.
+3. Team-width sweep of the K1/K2 kernel: device time (a CUDA graph of
+   20 launches) of every team width and block size in the sweep, float32,
+   25 iterations, both projections, at (25, 1788, 6), (1, 1788, 6),
+   (25, 1788, 20) and (25, 1788, 64), each result held to the plain
+   version's objective.
+4. K1 against its plain PyTorch version on the card: float32 at the
    main path's shape (R=25 groups, n=1788 rows, k=6) with both
    projections and a masked case, float64 at (3, 257, 11) after 3
-   iterations and at convergence, and k=20 and k=64; then both warm
-   times at the main-path shape (CUDA events, median of 10).
-4. K2, K3 and K4 against their plain versions: K2 at (n=1788, k=6)
+   iterations and at convergence, and k=20 and k=64; then its times at
+   the main-path shape: the wrapper's (CUDA events around one call,
+   median of 10), the device's (CUDA graph), the plain version's, the
+   mean iterations of a row, the bound and the one-thread-per-row
+   kernel's device time.
+5. K2, K3 and K4 against their plain versions: K2 at (n=1788, k=6)
    float32 with both projections; K3/K4 at (R=4, n=1788, k=96) and
    (1, 1788, 6) float32 and a masked case, float64 at (3, 257, 100)
    after 3 iterations and at convergence and at (1, 300, 128) (a
-   128 KiB Hessian in shared memory); then warm times of each kernel
-   and its plain version at its path's shape.
-5. Small fit: the port's ``aa_fit_restarts`` in float64 on the card and
-   on the CPU (K1 and its plain version) from the same initial states.
-6. Main path: the HadISST-scale best-of-100 fit that ``bench.py`` times
+   128 KiB Hessian in shared memory); then the same times as for K1 at
+   each path's shape.
+6. Small fit: the port's ``aa_fit_restarts`` in float64 on a numpy
+   array with no ``device`` (so on the card) and with ``device='cpu'``
+   (K1 and its plain version) from the same initial states, and an
+   ``ArchetypalAnalysis`` fit of a numpy array, which lands on the card.
+7. Main path: the HadISST-scale best-of-100 fit that ``bench.py`` times
    (n=1788 x d=16384 synthetic data, k=6, weights QP capped at 25
    iterations, dictionary at 1, rel_delta_f 1e-5, rounds of 32, chunks
    of 25), once to warm up and once timed with the launch counts reset
    just before; the winner is re-costed on the host in float64 and held
    to the JAX package's audited cost on the same data.
-7. Estimator at full width: ``ArchetypalAnalysis(6,
+8. Estimator at full width: ``ArchetypalAnalysis(6,
    init='furthest_sum')`` on the same data, fitted with the default
    weights backend (the row solver) and with ``'pallas'`` (K2 every
    iteration), then ``transform`` (one K2 launch); the device
    FurthestSum is held to the host one, the cost trace to the
    watchdog, the device cost to its float64 audit and the transform's
    cost to the fit's.
-8. k = 96 at full width: the estimator with ``'pallas'`` weights (K4)
+9. k = 96 at full width: the estimator with ``'pallas'`` weights (K4)
    and its transform, and ``aa_fit_restarts`` with 4 restarts (K3).
 
 Each path runs with every launch count set to 0 just before it and read
 just after.  The last lines of standard output are the card's name and
-power limit, a JSON object with every kernel's launches, error and
-times, and the JSON result line.
+power limit, a JSON object with every kernel's launches, error, times
+and bound, and the JSON result line.
 """
 
 import json
@@ -92,6 +104,29 @@ KERNELS = (
 #: The estimator path at k = 96 (K3, K4).
 WIDE_K = 96
 DEVICE = "cuda"
+
+#: The H100 SXM's published rates (NVIDIA's data sheet, at 700 W): HBM
+#: bytes per second and non-tensor FLOP/s by dtype.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+#: Flops per coordinate of one row-iteration besides D A (2 k^2 a row),
+#: counted from csrc/simplex_qp.cu: the step D = P(x - alpha g) - x (4),
+#: delta, q, ||D||^2 and ||D||_inf (9), the x and xA updates (4) and fval
+#: (4).  The projection adds 4 for Michelot's shortest run (one pass:
+#: sum and compare, then subtract and clamp) and 3 per halving plus 3
+#: for bisection.
+ROW_FLOPS = 21
+#: Launches a CUDA graph replays to time one launch on the device.
+GRAPH_LAUNCHES = 20
+#: The team-width sweep behind the rule simplex_qp.team_width: (label,
+#: (R, n, k), team widths, block sizes).
+SWEEP = (("K1", (RESTART_CHUNK, N_SAMPLES, K), (1, 2, 4, 8), (64, 128, 256)),
+         ("K2", (1, N_SAMPLES, K), (1, 2, 4, 8), (64, 128, 256)),
+         ("K1", (RESTART_CHUNK, N_SAMPLES, 16), (1, 8, 16), (128,)),
+         ("K1", (RESTART_CHUNK, N_SAMPLES, 20), (8, 16, 32), (128,)),
+         ("K1", (RESTART_CHUNK, N_SAMPLES, 40), (8, 16, 32), (128,)),
+         ("K1", (RESTART_CHUNK, N_SAMPLES, 64), (8, 16, 32), (128,)),
+         ("K2", (1, N_SAMPLES, 64), (8, 16, 32), (128,)))
 
 
 def check(ok, message):
@@ -154,32 +189,45 @@ def phase_device():
 
 
 def ptxas_report(log):
-    """One line per kernel variant from nvcc's ``-Xptxas -v`` output:
-    registers, spills and shared memory."""
-    lines, name, spill = [], None, ""
+    """One ``(name, report, clean)`` per kernel from nvcc's ``-Xptxas
+    -v`` output: registers, stack frame, spills and shared memory, and
+    whether it has neither a stack frame nor spills."""
+    out, name, spill = [], None, ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*simplex_qp_(grouped|"
-                      r"unpacked)_kernelI([fd])Li(\d+)E(?:Lb([01])E)?",
-                      line)
+        m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            dtype = "float" if m.group(2) == "f" else "double"
-            if m.group(1) == "grouped":
-                name = "K1/K2 %s KMAX %s %s" % (
-                    dtype, m.group(3),
-                    "michelot" if m.group(4) == "1" else "bisect")
+            mangled = m.group(1)
+            team = re.search(r"simplex_qp_grouped_kernelI([fd])Lb([01])E"
+                             r"Li(\d+)ELi(\d+)E", mangled)
+            warp = re.search(r"simplex_qp_unpacked_kernelI([fd])Li(\d+)E",
+                             mangled)
+            if team:
+                name = "K1/K2 %s %s T %s NC %s" % (
+                    "float" if team.group(1) == "f" else "double",
+                    "michelot" if team.group(2) == "1" else "bisect",
+                    team.group(3), team.group(4))
+            elif warp:
+                name = "K3/K4 %s NC %s" % (
+                    "float" if warp.group(1) == "f" else "double",
+                    warp.group(2))
             else:
-                name = "K3/K4 %s NC %s" % (dtype, m.group(3))
+                plain = re.search(r"\d+([a-z_]+)Ev$", mangled)
+                name = plain.group(1) if plain else mangled
         elif name and "spill" in line:
             spill = line.strip()
         elif name and "Used" in line:
-            lines.append("%-30s %s; %s" % (name, line.split(":", 1)[1]
-                                           .strip(), spill))
-            name = None
-    return sorted(lines)
+            clean = bool(re.fullmatch(r"0 bytes stack frame, 0 bytes spill "
+                                      r"stores, 0 bytes spill loads", spill))
+            out.append((name, "%s; %s" % (line.split(":", 1)[1].strip(),
+                                          spill), clean))
+            name, spill = None, ""
+    return sorted(out)
 
 
 def phase_build():
-    """Both libraries, one nvcc each, started together."""
+    """The three libraries (K1/K2 in float32 and in float64, K3/K4), one
+    nvcc each, started together."""
+    import torch
     from convex_dim_red_tpu_torch.ops import simplex_qp
     t0 = time.perf_counter()
     errors = []
@@ -190,20 +238,26 @@ def phase_build():
         except Exception as exc:  # re-raised below, in this thread
             errors.append(exc)
 
-    threads = [threading.Thread(target=build, args=(load,))
-               for load in (simplex_qp.load_library,
-                            simplex_qp.load_unpacked_library)]
+    threads = [threading.Thread(target=build, args=(load,)) for load in (
+        lambda: simplex_qp.load_library(torch.float32),
+        lambda: simplex_qp.load_library(torch.float64),
+        simplex_qp.load_unpacked_library)]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
-    print("build: %.1f s (two nvcc processes at once)"
+    print("build: %.1f s (three nvcc processes at once)"
           % (time.perf_counter() - t0))
-    for source in (simplex_qp.PACKED_SOURCE, simplex_qp.UNPACKED_SOURCE):
-        for line in ptxas_report(simplex_qp.build_log(source)):
-            print("  ptxas: " + line)
+    logs = simplex_qp.build_logs()
+    check(len(logs) == 3, "built %s" % sorted(logs))
+    for library, log in sorted(logs.items()):
+        report = ptxas_report(log)
+        check(len(report) > 1, "no ptxas report for %s" % library)
+        for name, line, clean in report:
+            print("  ptxas: %-32s %s" % (name, line))
+            check(clean, "%s: a stack frame or spills" % name)
 
 
 def compare_qp(name, As, Bs, X0s, tol_obj, tol_x=None, kernel=None,
@@ -242,20 +296,141 @@ def compare_qp(name, As, Bs, X0s, tol_obj, tol_x=None, kernel=None,
     return dx
 
 
+def _event_ms(fn):
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def cuda_median_ms(fn, reps=10):
+    """CUDA events around one call of ``fn`` (host enqueue included),
+    median of ``reps`` after a warm-up call."""
     import torch
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(_event_ms(fn) for _ in range(reps))
+
+
+def device_ms(fn, reps=5):
+    """Device time of one launch: CUDA events around a CUDA graph that
+    replays ``GRAPH_LAUNCHES`` calls of ``fn``, over that count, median
+    of ``reps`` replays.  The host's enqueue is not in it."""
+    import torch
+    fn()  # loads the kernel's module outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_LAUNCHES):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = statistics.median(_event_ms(graph.replay) for _ in range(reps))
+    del graph
+    return ms / GRAPH_LAUNCHES
+
+
+def mean_iterations(plain, args, **kw):
+    """Mean iterations a row takes on ``args``, from the row-iterations
+    that the plain version counts."""
+    from convex_dim_red_tpu_torch.ops import simplex_qp
+    simplex_qp.PLAIN_ROW_ITERATIONS = 0
+    out = plain(*args, **kw)
+    rows = out.numel() // out.shape[-1]
+    return simplex_qp.PLAIN_ROW_ITERATIONS / rows
+
+
+def qp_bound(R, n, k, dtype, iterations, projection):
+    """The least time the card could take for one solve: bytes (Bs and
+    X0s read, the result written, As read) over the HBM rate, and flops
+    (``iterations`` a row) over the non-tensor peak of ``dtype``."""
+    import torch
+    name = "float32" if dtype == torch.float32 else "float64"
+    size = 4 if dtype == torch.float32 else 8
+    if projection == "michelot":
+        per_coordinate = ROW_FLOPS + 4
+    else:
+        per_coordinate = (ROW_FLOPS + 3
+                          + 3 * (26 if dtype == torch.float32 else 52))
+    nbytes = (3 * R * n * k + R * k * k) * size
+    flops = R * n * iterations * (2 * k * k + per_coordinate * k)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * flops / PEAK_FLOPS[name]
+    return dict(bytes=nbytes, flops=flops, flops_per_coordinate=per_coordinate,
+                bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def kernel_times(name, kernel, plain, args, projection, team, threads,
+                 **kw):
+    """The times, mean iterations and bound of one kernel at ``args``:
+    the wrapper's (CUDA events), the device's (CUDA graph), the plain
+    version's, and the launch floor (an empty kernel on the same grid,
+    timed like the device time).  Printed and returned."""
+    from convex_dim_red_tpu_torch.ops import simplex_qp
+    Bs = args[1]
+    R, n, k = (1,) * (3 - Bs.ndim) + tuple(Bs.shape)
+    ms = cuda_median_ms(lambda: kernel(*args, projection=projection, **kw))
+    dev = device_ms(lambda: kernel(*args, projection=projection, **kw))
+    plain_ms = cuda_median_ms(
+        lambda: plain(*args, projection=projection, **kw))
+    iterations = mean_iterations(plain, args, projection=projection, **kw)
+    floor = device_ms(lambda: simplex_qp._empty_launch(team, threads, R, n))
+    bound = qp_bound(R, n, k, Bs.dtype, iterations, projection)
+    share = max(bound["bound_ms"], floor) / dev
+    print("  %s at (%d, %d, %d) %s %s: device %.5f ms a launch (CUDA graph "
+          "of %d), wrapper %.4f ms (CUDA events, median of 10), plain "
+          "version %.4f ms; mean iterations of a row %.3f; bound %.5f ms "
+          "(%s: %d bytes -> %.5f ms, %.4g flops at %d a coordinate + 2k^2 "
+          "-> %.5f ms), empty launch %.5f ms; %.1f%% of max(bound, empty "
+          "launch)"
+          % (name, R, n, k, str(Bs.dtype).split(".")[-1], projection, dev,
+             GRAPH_LAUNCHES, ms, plain_ms, iterations, bound["bound_ms"],
+             bound["bound_by"], bound["bytes"], bound["bytes_ms"],
+             bound["flops"], bound["flops_per_coordinate"], bound["ops_ms"],
+             floor, 100.0 * share))
+    return dict(ms=ms, plain_ms=plain_ms, device_ms=dev,
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                library_ms=None, launch_floor_ms=floor,
+                mean_iterations=iterations)
+
+
+def phase_sweep():
+    """Device time of the K1/K2 kernel at every team width and block size
+    of ``SWEEP`` (at width T a launch takes the kernel's first (T, NC)
+    pair with NC >= ceil(k / T)), each result held to the plain
+    version's objective."""
+    import torch
+    from convex_dim_red_tpu_torch.ops import simplex_qp
+    for projection in ("michelot", "bisect"):
+        for seed, (label, shape, teams, block_sizes) in enumerate(SWEEP):
+            args = qp_problem(10 + seed, *shape, torch.float32, DEVICE)
+            kw = dict(max_iterations=WEIGHTS_MAX_ITERATIONS)
+            plain = simplex_qp.quad_simplex_qp_packed_grouped_reference
+            want = qp_objective(plain(*args, projection=projection, **kw),
+                                *args[:2])
+            for team in teams:
+                row = []
+                for threads in block_sizes:
+                    def run():
+                        return simplex_qp._packed(
+                            *args, None, projection, kw, team=team,
+                            threads=threads)[0]
+                    got = qp_objective(run(), *args[:2])
+                    gap = float(np.max(np.abs(got - want)
+                                       / (1.0 + np.abs(want))))
+                    check(gap <= 1e-5, "sweep %s %s T=%d threads=%d: "
+                          "objective gap %.3e" % (label, shape, team,
+                                                  threads, gap))
+                    row.append("%d threads %.5f ms"
+                               % (threads, device_ms(run)))
+                print("  %s %s f32 %s T=%-2d: %s" % (
+                    label, shape, projection, team, ", ".join(row)))
 
 
 def phase_kernel():
@@ -288,27 +463,40 @@ def phase_kernel():
     # at an objective gap of 2e-14 on an H100, so x is held to 1e-7.
     compare_qp("f64 3x257x11 bisect", *f64, tol_obj=1e-12, tol_x=1e-7,
                projection="bisect", max_iterations=1000)
-    compare_qp("f32 2x500x20 (KMAX 32)",
+    compare_qp("f32 2x500x20 (T %d)" % simplex_qp.team_width(20),
                *qp_problem(2, 2, 500, 20, torch.float32, dev),
                tol_obj=1e-5, max_iterations=1000)
-    compare_qp("f64 2x300x64 (KMAX 64)",
+    compare_qp("f64 2x300x64 (T %d)" % simplex_qp.team_width(64),
                *qp_problem(3, 2, 300, 64, torch.float64, dev),
                tol_obj=1e-8, max_iterations=1000)
     torch.cuda.synchronize()
+    return dict(max_abs_err=err, **packed_times(
+        "K1", simplex_qp.quad_simplex_qp_packed_grouped,
+        simplex_qp.quad_simplex_qp_packed_grouped_reference, main))
 
-    def timed(fn, projection):
-        return cuda_median_ms(lambda: fn(
-            *main, projection=projection,
-            max_iterations=WEIGHTS_MAX_ITERATIONS))
 
-    ms = timed(simplex_qp.quad_simplex_qp_packed_grouped, "michelot")
-    plain_ms = timed(simplex_qp.quad_simplex_qp_packed_grouped_reference,
-                     "michelot")
-    bisect_ms = timed(simplex_qp.quad_simplex_qp_packed_grouped, "bisect")
-    print("  warm time at 25x1788x6 f32, 25 iterations: kernel %.4f ms "
-          "(bisect %.4f ms), plain version %.4f ms (CUDA events, median "
-          "of 10)" % (ms, bisect_ms, plain_ms))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+def packed_times(name, kernel, plain, args):
+    """K1's or K2's times at its path's shape (25 iterations), both
+    projections, beside the one-thread-per-row kernel (T = 1) timed the
+    same way; the Michelot numbers are returned."""
+    from convex_dim_red_tpu_torch.ops import simplex_qp as sq
+    k = args[1].shape[-1]
+    team = sq.team_width(k)
+    grouped = tuple(a if a.ndim == 3 else a[None] for a in args)
+    out = {}
+    for projection in ("michelot", "bisect"):
+        times = kernel_times(name, kernel, plain, args, projection, team,
+                             sq.PACKED_THREADS,
+                             max_iterations=WEIGHTS_MAX_ITERATIONS)
+        one = device_ms(lambda: sq._packed(
+            *grouped, None, projection,
+            dict(max_iterations=WEIGHTS_MAX_ITERATIONS), team=1)[0])
+        print("  %s %s: team width %d %.5f ms, one thread per row %.5f ms "
+              "(%.2fx)" % (name, projection, team, times["device_ms"], one,
+                           one / times["device_ms"]))
+        out.setdefault("times", dict(times, team_width=team,
+                                     one_thread_device_ms=one))
+    return out["times"]
 
 
 def _one_group(fn):
@@ -362,23 +550,18 @@ def phase_more_kernels():
                tol_obj=1e-12, tol_x=1e-7, max_iterations=1000, **k4)
     torch.cuda.synchronize()
 
-    def times(kind, args, **kw):
-        return (cuda_median_ms(lambda: kind["kernel"](*args, **kw)),
-                cuda_median_ms(lambda: kind["plain"](*args, **kw)))
-
-    out = {}
-    out["K2"] = times(k2, single, max_iterations=WEIGHTS_MAX_ITERATIONS)
-    out["K3"] = times(k3, wide, max_iterations=1000)
-    out["K4"] = times(k4, [t[0] for t in wide], max_iterations=1000)
-    shapes = {"K2": "1788x6 f32, 25 iterations",
-              "K3": "4x1788x96 f32, up to 1000 iterations",
-              "K4": "1788x96 f32, up to 1000 iterations"}
-    for key, (ms, plain_ms) in out.items():
-        print("  warm time %s at %s: kernel %.4f ms, plain version %.4f "
-              "ms (CUDA events, median of 10)"
-              % (key, shapes[key], ms, plain_ms))
-    return {key: dict(max_abs_err=errors[key], ms=ms, plain_ms=plain_ms)
-            for key, (ms, plain_ms) in out.items()}
+    out = {"K2": packed_times("K2", k2["kernel"], k2["plain"], single)}
+    # K3/K4 take the bisection only; their grid is that of team width 32
+    # in blocks of 256 lanes (csrc/simplex_qp_unpacked.cu: a warp a row,
+    # 8 warps a block).
+    for key, kind, args in (("K3", k3, wide),
+                            ("K4", k4, [t[0] for t in wide])):
+        out[key] = kernel_times(
+            key, lambda *a, projection, **kw: kind["kernel"](*a, **kw),
+            lambda *a, projection, **kw: kind["plain"](*a, **kw), args,
+            "bisect", 32, 256, max_iterations=1000)
+    return {key: dict(max_abs_err=errors[key], **times)
+            for key, times in out.items()}
 
 
 def planted(seed, n, d, k, noise):
@@ -405,22 +588,36 @@ def fit_kwargs():
 
 def phase_small_fit():
     """The same float64 fit on the card and on the CPU, from the same
-    initial states (a CPU generator draws them on both).  This planted
-    problem is well conditioned, so rounding differences between the
-    two stay far below the 1e-6 compared here.  ``backend='pallas'`` on
-    both: 'auto' runs the row solver on the CPU, which stops on another
-    rule."""
+    initial states (a CPU generator draws them on both).  The data is a
+    numpy array: with no ``device`` the fit runs on the card, with
+    ``device='cpu'`` on the CPU.  This planted problem is well
+    conditioned, so rounding differences between the two stay far below
+    the 1e-6 compared here.  ``backend='pallas'`` on both: 'auto' runs
+    the row solver on the CPU, which stops on another rule."""
     import torch
-    from convex_dim_red_tpu_torch import aa_fit_restarts
-    X = torch.as_tensor(planted(0, 300, 40, 6, 0.01))
+    from convex_dim_red_tpu_torch import ArchetypalAnalysis, aa_fit_restarts
+    X = planted(0, 300, 40, 6, 0.01)
     kw = dict(fit_kwargs(), tolerance=1e-6, max_iterations=200,
               restart_chunk=4)
     kw['weights_solver_kwargs'] = dict(kw['weights_solver_kwargs'],
                                        backend='pallas')
-    res = {dev: aa_fit_restarts(X.to(dev), 6,
-                                torch.Generator().manual_seed(0), 8, **kw)
+    res = {dev: aa_fit_restarts(X, 6, torch.Generator().manual_seed(0), 8,
+                                **kw, **({} if dev == "cuda" else
+                                         dict(device=dev)))
            for dev in ("cuda", "cpu")}
     torch.cuda.synchronize()
+    for dev, r in res.items():
+        check(r["weights"].device.type == dev,
+              "aa_fit_restarts(numpy%s) ran on %s"
+              % ("" if dev == "cuda" else ", device='cpu'",
+                 r["weights"].device))
+    model = ArchetypalAnalysis(6, init='furthest_sum', random_state=0,
+                               max_iterations=20).fit(X)
+    check(model.weights.device.type == "cuda"
+          and model.archetypes.device.type == "cuda",
+          "ArchetypalAnalysis.fit(numpy) ran on %s" % model.weights.device)
+    print("  a numpy array with no device= ran aa_fit_restarts and "
+          "ArchetypalAnalysis.fit on the card")
     rel = float(np.max(np.abs(res["cuda"]["costs"] / res["cpu"]["costs"]
                               - 1.0)))
     print("  float64 300x40, k=6, 8 restarts: costs on the card vs the "
@@ -680,6 +877,8 @@ def main():
     import torch
     print("== build")
     phase_build()
+    print("== team-width sweep of the K1/K2 kernel")
+    phase_sweep()
     print("== K1 against its plain version")
     kernels = {"K1": phase_kernel()}
     print("== K2, K3 and K4 against their plain versions")

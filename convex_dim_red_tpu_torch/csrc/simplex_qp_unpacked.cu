@@ -25,8 +25,8 @@
 // (one vector-matrix product) plus 26-52 bisection steps, each a sum
 // over k; the rows are independent and their data never leaves the
 // chip after the first load.  At k up to 128 one thread cannot hold a
-// row in registers (the one-thread-per-row kernel of simplex_qp.cu
-// spills from k = 32 on), so latency of the serial iteration chain and
+// row in registers (simplex_qp.cu gives a thread at most 16
+// coordinates), so latency of the serial iteration chain and
 // the width of the per-row reductions bound it, not bytes or FLOPs.
 //
 // What the design does about it.  One warp owns one row: lane l holds

@@ -25,6 +25,11 @@ and monotonicity watchdog as the JAX package.
   made on it and moved to the data's device.  The draws differ from
   the JAX package's, so a comparison starts both from ``init='custom'``
   states (utils/interop.py).
+- An estimator's ``device`` (constructor) places the data of ``fit``,
+  ``fit_transform`` and ``transform``: a tensor stays on its own device
+  unless ``device`` is given, anything else goes to ``device``, by
+  default ``'cuda'`` (``RuntimeError`` where there is no CUDA device;
+  pass ``device='cpu'``).  See :func:`utils.validation.as_input`.
 - ``mesh=`` (the JAX package's SPMD fits) is not ported: multi-GPU is
   ROADMAP.md queue 1, item 17.
 """
@@ -42,7 +47,8 @@ from ..ops.stochastic_matrices import right_stochastic_matrix
 from ..solvers.spg import (quad_simplex_spg_batch, quad_spg,
                            resolve_qp_backend)
 from ..utils.precision import apply_matmul_precision, matmul_precision_scope
-from ..utils.validation import check_array_shape, check_stochastic_matrix
+from ..utils.validation import (as_input, check_array_shape,
+                                check_stochastic_matrix)
 from ._common import (QPSolverConfig, SPGSolverConfig, make_config,
                       STOPPING_CRITERIA, has_converged)
 
@@ -463,14 +469,15 @@ class KernelAA:
     The JAX package's (and the reference's) constructor parameters,
     ``fit`` / ``fit_transform``, and fitted attributes ``weights``,
     ``dictionary``, ``alpha``, ``cost``, ``n_iter``,
-    ``avg_time_per_iter``, ``cost_deltas``.  The fit runs on the
-    kernel's device and in its dtype.  ``random_state``: see the module
-    docstring.  ``mesh`` must be None.
+    ``avg_time_per_iter``, ``cost_deltas``.  The fit runs in the
+    kernel's dtype, on the device that ``device`` gives it (see the
+    module docstring).  ``random_state``: see the module docstring.
+    ``mesh`` must be None.
     """
 
     def __init__(self, n_components, delta=0, init=None,
                  tolerance=1e-6, max_iterations=1000, verbose=0,
-                 random_state=None, mesh=None, **kwargs):
+                 random_state=None, mesh=None, device=None, **kwargs):
         _reject_mesh(mesh)
         self.n_components = n_components
         self.delta = delta
@@ -479,6 +486,7 @@ class KernelAA:
         self.max_iterations = max_iterations
         self.verbose = verbose
         self.mesh = mesh
+        self.device = device
         self._generator = _as_generator(random_state)
         self.require_monotonic_cost_decrease = kwargs.get(
             'require_monotonic_cost_decrease', True)
@@ -558,7 +566,7 @@ class KernelAA:
     def _kernel_aa(self, kernel, dictionary=None, weights=None, alpha=None,
                    update_dictionary=True, update_weights=True,
                    update_scale_factors=True, data=None, **kwargs):
-        kernel = torch.as_tensor(kernel)
+        kernel = as_input(kernel, self.device)
         n_samples = kernel.shape[0]
         if kernel.ndim != 2 or kernel.shape[1] != n_samples:
             raise ValueError(
@@ -620,16 +628,17 @@ class ArchetypalAnalysis:
     the kernel iteration with the residual-form cost.  ``fit`` /
     ``fit_transform`` / ``transform`` / ``inverse_transform``, with the
     fitted attributes of :class:`KernelAA` plus ``archetypes`` (``a C
-    X``).  The fit runs on the data's device and in its dtype.
+    X``).  The fit runs in the data's dtype, on the device that
+    ``device`` gives it (see the module docstring).
     """
 
     def __init__(self, n_components, delta=0, init=None,
                  tolerance=1e-6, max_iterations=1000, verbose=0,
-                 random_state=None, mesh=None, **kwargs):
+                 random_state=None, mesh=None, device=None, **kwargs):
         self._kernel_model = KernelAA(
             n_components, delta=delta, init=init, tolerance=tolerance,
             max_iterations=max_iterations, verbose=verbose,
-            random_state=random_state, mesh=mesh, **kwargs)
+            random_state=random_state, mesh=mesh, device=device, **kwargs)
         self.n_components = n_components
         self.delta = delta
         self.init = init
@@ -637,6 +646,7 @@ class ArchetypalAnalysis:
         self.max_iterations = max_iterations
         self.verbose = verbose
         self.mesh = mesh
+        self.device = device
 
         self.weights = None
         self.dictionary = None
@@ -654,7 +664,7 @@ class ArchetypalAnalysis:
     def fit_transform(self, data, dictionary=None, weights=None, alpha=None,
                       **kwargs):
         """Fit AA to ``data`` with shape (n_samples, n_features)."""
-        data = torch.as_tensor(data)
+        data = as_input(data, self.device)
         if self.n_components is None:
             # Reference quirk kept for parity: data-space AA defaults to
             # n_features components.
@@ -695,7 +705,7 @@ class ArchetypalAnalysis:
         runs a kernel on a CUDA device), capped at the estimator's
         ``max_iterations`` as in the reference.  Returns ``(weights,
         cost)``."""
-        data = torch.as_tensor(data)
+        data = as_input(data, self.device)
         n_samples = data.shape[0]
 
         cfg = make_config(QPSolverConfig, dict(
@@ -719,6 +729,8 @@ class ArchetypalAnalysis:
         return weights, cost
 
     def inverse_transform(self, weights):
-        """Map weights back to data space: ``Z @ archetypes``."""
+        """Map weights back to data space: ``Z @ archetypes`` (an array
+        goes to the archetypes' device)."""
         with matmul_precision_scope():
-            return torch.as_tensor(weights) @ self.archetypes
+            return (torch.as_tensor(weights, device=self.archetypes.device)
+                    @ self.archetypes)

@@ -17,21 +17,24 @@ csrc/simplex_qp.cu).
 - K4 :func:`quad_simplex_qp` replaces ``quad_simplex_qp_pallas`` (one
   Hessian, k <= 128).
 
-- K1 and K2 run the one-thread-per-row kernel of ``csrc/simplex_qp.cu``
-  (K2 is K1 with one group), with the Michelot or the bisection
-  projection.  K3 and K4 run the one-warp-per-row kernel of
-  ``csrc/simplex_qp_unpacked.cu`` (K4 is K3 with one group), bisection
-  only, as on the TPU.
+- K1 and K2 run the team-per-row kernel of ``csrc/simplex_qp.cu`` (K2
+  is K1 with one group): :func:`team_width` lanes solve one row, with
+  the Michelot or the bisection projection.  K3 and K4 run the
+  one-warp-per-row kernel of ``csrc/simplex_qp_unpacked.cu`` (K4 is K3
+  with one group), bisection only, as on the TPU.
 - Each library is built with ``nvcc`` for ``sm_90a`` at first use into
   ``_build/`` (the file name carries a hash of the source and flags)
-  and bound with ``ctypes``.  A CUDA tensor goes to the kernel, a CPU
-  tensor to the plain version; each wrapper adds one to its own launch
-  count (:data:`LAUNCHES`, :data:`PACKED_LAUNCHES`,
+  and bound with ``ctypes``; ``csrc/simplex_qp.cu`` is built once per
+  dtype, so that its two builds run in parallel.  A CUDA tensor goes to
+  the kernel, a CPU tensor to the plain version; each wrapper adds one
+  to its own launch count (:data:`LAUNCHES`, :data:`PACKED_LAUNCHES`,
   :data:`GROUPED_LAUNCHES`, :data:`UNPACKED_LAUNCHES`) per kernel launch.
 - The plain versions are one loop over the ``(R, n, k)`` batch with
   per-row active masks: :func:`quad_simplex_qp_packed_grouped_reference`
   (K1, and K2 at R = 1) and :func:`quad_simplex_qp_grouped_reference`
   (the same loop with bisection and k up to 128: K3, and K4 at R = 1).
+  They count the row-iterations they run in
+  :data:`PLAIN_ROW_ITERATIONS`.
 
 The solver arguments of every wrapper are ``max_iterations`` (1000),
 ``alpha0`` (-1, i.e. from the first projected gradient), ``alpha_min``
@@ -55,6 +58,9 @@ __all__ = [
     "PACKED_LAUNCHES",
     "GROUPED_LAUNCHES",
     "UNPACKED_LAUNCHES",
+    "PLAIN_ROW_ITERATIONS",
+    "PACKED_THREADS",
+    "team_width",
     "quad_simplex_qp_packed_grouped",
     "quad_simplex_qp_packed",
     "quad_simplex_qp_grouped",
@@ -63,7 +69,7 @@ __all__ = [
     "quad_simplex_qp_grouped_reference",
     "load_library",
     "load_unpacked_library",
-    "build_log",
+    "build_logs",
 ]
 
 #: Widest QP the packed kernels (K1, K2) take: the Michelot active set
@@ -85,6 +91,15 @@ GROUPED_LAUNCHES = 0
 #: Kernel launches made by :func:`quad_simplex_qp` (K4).
 UNPACKED_LAUNCHES = 0
 
+#: Row-iterations run by the plain versions: over the iterations of a
+#: call, the number of rows still active.  Over ``R * n`` it is the mean
+#: number of iterations a row takes on that input.
+PLAIN_ROW_ITERATIONS = 0
+
+#: Lanes per block of the K1/K2 kernel (a multiple of 32, at most 256),
+#: measured on an H100 (PERF.md, section 6, team-width sweep).
+PACKED_THREADS = 128
+
 _PROJECTIONS = ("michelot", "bisect")
 
 _SOLVER_DEFAULTS = dict(max_iterations=1000, alpha0=-1.0, alpha_min=1e-5,
@@ -98,17 +113,26 @@ _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Argument types after (dtype, ...) of the two C launch functions.
+# Argument types of the C launch functions.
 _SOLVE_ARGTYPES = [ctypes.c_int, ctypes.c_double, ctypes.c_int,
                    ctypes.c_double, ctypes.c_double, ctypes.c_double,
                    ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
-_PACKED_ARGTYPES = ([ctypes.c_int, ctypes.c_int]
-                    + [ctypes.c_void_p] * 4
-                    + [ctypes.c_int] * 3 + [ctypes.c_uint64]
-                    + _SOLVE_ARGTYPES)
-_UNPACKED_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                      + [ctypes.c_int] * 3 + [ctypes.c_uint64] * 2
-                      + _SOLVE_ARGTYPES)
+_PACKED_SYMBOLS = {
+    # (dtype, projection, team, threads, As, Bs, X0s, out, R, n, k,
+    # mask, solver arguments, stream)
+    "simplex_qp_grouped_launch": ([ctypes.c_int] * 4
+                                  + [ctypes.c_void_p] * 4
+                                  + [ctypes.c_int] * 3 + [ctypes.c_uint64]
+                                  + _SOLVE_ARGTYPES),
+    # (team, threads, R, n, stream)
+    "simplex_qp_empty_launch": [ctypes.c_int] * 4 + [ctypes.c_void_p],
+}
+_UNPACKED_SYMBOLS = {
+    "simplex_qp_unpacked_launch": ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                                   + [ctypes.c_int] * 3
+                                   + [ctypes.c_uint64] * 2
+                                   + _SOLVE_ARGTYPES),
+}
 
 _libs = {}
 _build_logs = {}
@@ -128,15 +152,28 @@ def _nvcc():
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def _load(source, symbol, argtypes):
-    """Build ``source`` (once per source hash) and load it.  A failed
-    build raises with nvcc's output; the build log (``-Xptxas -v``) is
-    kept for :func:`build_log`."""
-    if source in _libs:
-        return _libs[source]
+def team_width(k):
+    """Lanes that solve one row together in the K1/K2 kernel at QP width
+    ``k`` (1 to 64), measured on an H100 (PERF.md, section 6, team-width
+    sweep): one thread a row while its row fits its registers (k <= 16),
+    else a team of 8 (k <= 40) or 16.  ``csrc/simplex_qp.cu`` builds, for
+    every such ``k``, a pair ``(team_width(k), NC)`` with
+    ``NC >= ceil(k / team_width(k))`` coordinates a lane."""
+    k = int(k)
+    return 1 if k <= 16 else (8 if k <= 40 else 16)
+
+
+def _load(source, symbols, defines=()):
+    """Build ``source`` with the macro ``defines`` (once per hash of the
+    source and flags) and load it, with the argument types ``symbols``
+    maps each C function to.  A failed build raises with nvcc's output;
+    the build log (``-Xptxas -v``) is kept for :func:`build_logs`."""
+    key = (source, defines)
+    if key in _libs:
+        return _libs[key]
+    flags = _NVCC_FLAGS + tuple("-D" + d for d in defines)
     text = source.read_bytes()
-    digest = hashlib.sha256(
-        text + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     path = _BUILD_DIR / ("lib%s-%s.so" % (source.stem, digest))
     log_path = path.with_suffix(".log")
     if not path.exists():
@@ -145,7 +182,7 @@ def _load(source, symbol, argtypes):
         os.close(fd)
         try:
             proc = subprocess.run(
-                [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(source)],
+                [_nvcc(), *flags, "-o", tmp, str(source)],
                 capture_output=True, text=True, check=False)
             if proc.returncode != 0:
                 raise RuntimeError("nvcc failed to build %s:\n%s%s"
@@ -156,32 +193,33 @@ def _load(source, symbol, argtypes):
             if os.path.exists(tmp):
                 os.remove(tmp)
     lib = ctypes.CDLL(str(path))
-    fn = getattr(lib, symbol)
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
-    _build_logs[source] = log_path.read_text() if log_path.exists() else ""
-    _libs[source] = lib
+    for symbol, argtypes in symbols.items():
+        fn = getattr(lib, symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    _build_logs[" ".join((source.name,) + defines)] = (
+        log_path.read_text() if log_path.exists() else "")
+    _libs[key] = lib
     return lib
 
 
-def load_library():
-    """Build and load ``csrc/simplex_qp.cu`` (K1, K2); returns the
-    ``ctypes`` handle."""
-    return _load(PACKED_SOURCE, "simplex_qp_grouped_launch",
-                 _PACKED_ARGTYPES)
+def load_library(dtype=torch.float32):
+    """Build and load ``csrc/simplex_qp.cu`` (K1, K2) for ``dtype``
+    (float32 or float64); returns the ``ctypes`` handle."""
+    return _load(PACKED_SOURCE, _PACKED_SYMBOLS, (
+        "SIMPLEX_QP_DTYPE=%d" % (0 if dtype == torch.float32 else 1),))
 
 
 def load_unpacked_library():
     """Build and load ``csrc/simplex_qp_unpacked.cu`` (K3, K4); returns
     the ``ctypes`` handle."""
-    return _load(UNPACKED_SOURCE, "simplex_qp_unpacked_launch",
-                 _UNPACKED_ARGTYPES)
+    return _load(UNPACKED_SOURCE, _UNPACKED_SYMBOLS)
 
 
-def build_log(source=PACKED_SOURCE):
-    """nvcc's output from the build of ``source``'s loaded library (''
-    before it is loaded)."""
-    return _build_logs.get(Path(source), "")
+def build_logs():
+    """nvcc's output from the build of every loaded library, by source
+    name and macros."""
+    return dict(_build_logs)
 
 
 def _solver_args(kwargs):
@@ -278,16 +316,35 @@ def _mask_bits(mask_h):
     return sum(1 << j for j, on in enumerate(mask_h.tolist()) if on)
 
 
-def _packed(As, Bs, X0s, mask, projection, kwargs):
+def _packed(As, Bs, X0s, mask, projection, kwargs, team=None,
+            threads=None):
     """K1's kernel (``csrc/simplex_qp.cu``) or, on CPU tensors, its
-    plain version.  Returns ``(out, launched)``."""
+    plain version.  Returns ``(out, launched)``.  ``team`` and
+    ``threads`` (default :func:`team_width` and
+    :data:`PACKED_THREADS`) are for the team-width sweep of
+    ``chip_smoke.py``, which launches here without counting."""
     R, n, k, mask_h = _check(As, Bs, X0s, mask, projection, MAX_K)
     kw = _solver_args(kwargs)
     if X0s.device.type == "cpu":
         return _solve_plain(As, Bs, X0s, mask_h, projection, **kw), False
-    return _launch(load_library, "simplex_qp_grouped_launch", As, Bs, X0s,
-                   R, n, (_PROJECTIONS.index(projection),),
+    team = team_width(k) if team is None else int(team)
+    threads = PACKED_THREADS if threads is None else int(threads)
+    return _launch(lambda: load_library(X0s.dtype),
+                   "simplex_qp_grouped_launch", As, Bs, X0s,
+                   R, n, (_PROJECTIONS.index(projection), team, threads),
                    (R, n, k, _mask_bits(mask_h), *_solve_args(kw, X0s.dtype)))
+
+
+def _empty_launch(team, threads, R, n):
+    """An empty kernel on the grid of K1's kernel at ``(team,
+    threads)`` over ``R`` groups of ``n`` rows, on the current stream:
+    the launch floor of the kernels' bound (``chip_smoke.py``)."""
+    err = load_library().simplex_qp_empty_launch(
+        int(team), int(threads), int(R), int(n),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("simplex_qp_empty_launch failed with code %d"
+                           % err)
 
 
 def _unpacked(As, Bs, X0s, mask, kwargs):
@@ -423,6 +480,7 @@ def quad_simplex_qp_grouped_reference(As, Bs, X0s, mask=None,
 
 def _solve_plain(As, Bs, X0s, mask_h, projection, *, max_iterations,
                  alpha0, alpha_min, alpha_max, epsilon_one, epsilon_two):
+    global PLAIN_ROW_ITERATIONS
     R, n, k = X0s.shape
     dtype = X0s.dtype
     mask = mask_h.to(X0s.device)
@@ -452,8 +510,10 @@ def _solve_plain(As, Bs, X0s, mask_h, projection, *, max_iterations,
         return torch.sum(v, dim=-1, keepdim=True)
 
     for _ in range(int(max_iterations)):
-        if not bool(active.any()):
+        n_active = int(active.sum())
+        if n_active == 0:
             break
+        PLAIN_ROW_ITERATIONS += n_active
         G = AX + Bs
         alpha_used = alpha
         D = project(X - alpha * G) - X

@@ -32,6 +32,7 @@ from ..ops.stochastic_matrices import right_stochastic_matrix
 from ..solvers.spg import (quad_simplex_spg_batch_grouped, quad_spg,
                            resolve_qp_backend)
 from ..utils.precision import apply_matmul_precision
+from ..utils.validation import as_input
 from .sharded_aa import _keep_best_loop
 
 __all__ = ["aa_fit_restarts"]
@@ -315,11 +316,15 @@ def aa_fit_restarts(data, n_components, generator, n_init, delta=0.0,
                     weights_solver_kwargs=None,
                     scale_factors_solver_kwargs=None,
                     mesh=None, restart_chunk=None, pad_components_to=None,
-                    screen_iterations=None, compact_iterations=None):
+                    screen_iterations=None, compact_iterations=None,
+                    device=None):
     """Best-of-``n_init`` archetypal analysis on one device.
 
-    ``data``: (n_samples, n_features) tensor (or array); the fit runs
-    on its device and in its dtype.  ``generator``: a
+    ``data``: (n_samples, n_features) tensor or array; the fit runs in
+    its dtype, on ``device`` if given, else on a tensor's own device,
+    else (a numpy array, a list) on the card: ``'cuda'``, which raises
+    ``RuntimeError`` where there is none (pass ``device='cpu'``).
+    ``generator``: a
     ``torch.Generator`` or an integer seed (the JAX package takes a
     PRNG key).  Restarts run with convergence compaction: rounds of
     ``compact_iterations`` iterations, chunks of ``restart_chunk``
@@ -361,7 +366,7 @@ def aa_fit_restarts(data, n_components, generator, n_init, delta=0.0,
     if int(n_init) < 1:
         raise ValueError("n_init must be >= 1, got %r" % (n_init,))
 
-    X = torch.as_tensor(data)
+    X = as_input(data, device)
     if not isinstance(generator, torch.Generator):
         generator = torch.Generator(device=X.device).manual_seed(
             int(generator))

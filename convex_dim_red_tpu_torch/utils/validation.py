@@ -2,12 +2,14 @@
 
 Port of convex_dim_red_tpu/utils/validation.py, with its error
 messages.  The checks run on the host: tensors are copied there first.
+:func:`as_input` places an entry point's data on its device.
 """
 
 import numpy as np
 import torch
 
 __all__ = [
+    "as_input",
     "check_unit_axis_sums",
     "check_array_shape",
     "check_stochastic_matrix",
@@ -42,3 +44,23 @@ def check_stochastic_matrix(a, shape, whom, axis=0):
     """Check array is a stochastic matrix with the correct shape."""
     check_array_shape(a, shape, whom)
     check_unit_axis_sums(a, whom, axis=axis)
+
+
+def as_input(data, device=None):
+    """An entry point's data as a tensor, in its own dtype.
+
+    A tensor stays on its device unless ``device`` is given; anything
+    else (a numpy array, a list) goes to ``device``, by default
+    ``'cuda'``: the port runs on the card unless the caller asks for
+    the CPU.  Raises ``RuntimeError`` where the device is CUDA and no
+    CUDA device is available, rather than running on the CPU.
+    """
+    if isinstance(data, torch.Tensor) and device is None:
+        return data
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available, and the data goes to the card "
+            "unless it is a tensor elsewhere: pass device='cpu' to run "
+            "on the CPU")
+    return torch.as_tensor(data, device=device)

@@ -57,12 +57,16 @@ def _objective(X, As, Bs):
             + torch.sum(X * Bs, dim=2))
 
 
+@pytest.mark.parametrize("R,n", [(3, 257), (1, 1), (1, 31), (3, 33),
+                                 (1, 257)])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("projection", ["michelot", "bisect"])
-@pytest.mark.parametrize("k", [1, 3, 8, 9, 16, 17, 32, 33, 64])
-def test_first_iterations_match_plain(cuda, k, projection, masked):
-    # Every KMAX template (8, 16, 32, 64) and the edges between them.
-    args = _problem(k, 3, 257, k, torch.float64, cuda)
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 64])
+def test_first_iterations_match_plain(cuda, k, projection, masked, R, n):
+    # Both ends of every (team width, coordinates a lane) pair of the
+    # rule simplex_qp.team_width, one group or three, and row counts
+    # that leave the last block's teams partly past n.
+    args = _problem(k, R, n, k, torch.float64, cuda)
     mask = (np.arange(k) != k // 2) if masked and k > 1 else None
     got, want = _both(args, max_iterations=3, projection=projection,
                       mask=mask)
@@ -86,6 +90,48 @@ def test_converged_main_path_shape_matches_plain(cuda, projection,
     assert float(got.min()) >= 0.0
     if masked:
         assert bool((got[:, :, 3] == 0).all())
+
+
+def _mixed_rows(seed, n, k):
+    """One group whose even rows converge after 1 or 2 iterations
+    (started at or near the vertex that their linear term pulls to) and
+    whose odd rows take 125-430 in the plain version at k = 6 and 20
+    (an optimum inside the simplex, a Hessian with eigenvalues from 0.1
+    to 10)."""
+    rng = np.random.RandomState(seed)
+    Q, _ = np.linalg.qr(rng.standard_normal((k, k)))
+    A = (Q * np.logspace(-1, 1, k)) @ Q.T
+    inside = rng.uniform(size=(n, k))
+    inside /= inside.sum(axis=1, keepdims=True)
+    B = -(inside @ A) + rng.standard_normal((n, 1))
+    X0 = np.full((n, k), 1.0 / k)
+    for i in range(0, n, 2):
+        j = i % k
+        B[i] = 0.0
+        B[i, j] = -100.0
+        X0[i] = 0.0 if i % 4 == 0 else 0.5 / (k - 1)
+        X0[i, j] = 1.0 if i % 4 == 0 else 0.5
+    return A[None], B[None], X0[None]
+
+
+@pytest.mark.parametrize("projection", ["michelot", "bisect"])
+@pytest.mark.parametrize("k", [6, 20])
+def test_rows_do_not_depend_on_their_neighbours(cuda, k, projection):
+    # Teams of one warp leave their loops at different iterations; each
+    # row's result is the one it gets alone, bit for bit.
+    A, B, X0 = (torch.as_tensor(a, device=cuda)
+                for a in _mixed_rows(k, 70, k))
+    kw = dict(projection=projection, max_iterations=1000)
+    together = simplex_qp.quad_simplex_qp_packed_grouped(A, B, X0, **kw)
+    for i in range(B.shape[1]):
+        alone = simplex_qp.quad_simplex_qp_packed_grouped(
+            A, B[:, i:i + 1].contiguous(), X0[:, i:i + 1].contiguous(), **kw)
+        assert torch.equal(alone, together[:, i:i + 1]), i
+    # Half the rows are slow: over 50 iterations a row on average (the
+    # plain version's row-iterations over rows).
+    before = simplex_qp.PLAIN_ROW_ITERATIONS
+    simplex_qp.quad_simplex_qp_packed_grouped_reference(A, B, X0, **kw)
+    assert simplex_qp.PLAIN_ROW_ITERATIONS - before > 50 * B.shape[1]
 
 
 def test_launches_are_counted(cuda):

@@ -1,0 +1,137 @@
+"""Where the port's entry points run, and the team-width rule of the
+K1/K2 kernel.
+
+A tensor stays on its own device; anything else (a numpy array, a list)
+goes to ``device``, by default the card, and without a CUDA device that
+raises instead of running on the CPU.  The CUDA probe is patched to
+report no device, so these tests ask the same on any machine.
+"""
+
+import math
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from convex_dim_red_tpu_torch import ArchetypalAnalysis, KernelAA
+from convex_dim_red_tpu_torch import aa_fit_restarts
+from convex_dim_red_tpu_torch.ops import simplex_qp
+from convex_dim_red_tpu_torch.utils.validation import as_input
+
+torch.set_num_threads(1)
+
+N, D, K = 60, 8, 3
+RESTARTS = dict(init='random', max_iterations=20,
+                dictionary_solver_kwargs={'max_iterations': 1},
+                weights_solver_kwargs={'max_iterations': 10},
+                compact_iterations=8)
+ESTIMATOR = dict(init='furthest_sum', random_state=0, max_iterations=20)
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _data(seed=0):
+    return np.random.RandomState(seed).standard_normal((N, D))
+
+
+def _fitted_on_cpu():
+    return ArchetypalAnalysis(K, **ESTIMATOR).fit(torch.as_tensor(_data()))
+
+
+@pytest.mark.parametrize("call", [
+    lambda X: aa_fit_restarts(X, K, 0, 2, **RESTARTS),
+    lambda X: ArchetypalAnalysis(K, **ESTIMATOR).fit(X),
+    lambda X: ArchetypalAnalysis(K, **ESTIMATOR).fit_transform(X),
+    lambda X: KernelAA(K, **ESTIMATOR).fit(X @ X.T),
+    lambda X: _fitted_on_cpu().transform(X),
+], ids=["aa_fit_restarts", "fit", "fit_transform", "KernelAA.fit",
+        "transform"])
+def test_numpy_without_device_needs_the_card(no_cuda, call):
+    with pytest.raises(RuntimeError, match=re.escape("device='cpu'")):
+        call(_data())
+
+
+def test_numpy_with_device_cpu_matches_the_cpu_tensor_fit(no_cuda):
+    X = _data(1)
+    want = aa_fit_restarts(torch.as_tensor(X), K, 0, 2, **RESTARTS)
+    got = aa_fit_restarts(X, K, 0, 2, device='cpu', **RESTARTS)
+    assert got['weights'].device.type == "cpu"
+    np.testing.assert_array_equal(got['costs'], want['costs'])
+    assert torch.equal(got['weights'], want['weights'])
+
+
+def test_estimator_with_device_cpu_matches_the_cpu_tensor_fit(no_cuda):
+    X, X_new = _data(2), _data(3)
+    want = ArchetypalAnalysis(K, **ESTIMATOR).fit(torch.as_tensor(X))
+    got = ArchetypalAnalysis(K, device='cpu', **ESTIMATOR).fit(X)
+    assert got.weights.device.type == "cpu"
+    assert got.cost == want.cost and got.n_iter == want.n_iter
+    assert torch.equal(got.archetypes, want.archetypes)
+    # transform draws its starting weights from the estimator's
+    # generator, which both fits left in the same state.
+    W_want, cost_want = want.transform(torch.as_tensor(X_new))
+    W_got, cost_got = got.transform(X_new)
+    assert cost_got == cost_want
+    assert torch.equal(W_got, W_want)
+
+
+def test_cpu_tensor_stays_on_the_cpu_without_device(no_cuda):
+    X = torch.as_tensor(_data(4))
+    res = aa_fit_restarts(X, K, 0, 2, **RESTARTS)
+    assert res['weights'].device.type == "cpu"
+    model = ArchetypalAnalysis(K, **ESTIMATOR).fit(X)
+    assert model.weights.device.type == "cpu"
+    W, cost = model.transform(X)
+    assert W.device.type == "cpu" and np.isfinite(cost)
+    # An array of weights goes to the archetypes' device.
+    recon = model.inverse_transform(W.numpy())
+    assert recon.device.type == "cpu"
+    assert torch.equal(recon, model.inverse_transform(W))
+    kernel = KernelAA(K, **ESTIMATOR).fit(X @ X.T)
+    assert kernel.weights.device.type == "cpu"
+
+
+@pytest.mark.parametrize("data,dtype", [
+    (np.zeros((2, 3), np.float32), torch.float32),
+    (np.zeros((2, 3)), torch.float64),
+    ([[0.0, 1.0]], torch.get_default_dtype())])
+def test_as_input_keeps_the_dtype(no_cuda, data, dtype):
+    out = as_input(data, 'cpu')
+    assert out.dtype == dtype and out.device.type == "cpu"
+    tensor = torch.zeros(2, dtype=torch.float64)
+    assert as_input(tensor) is tensor
+
+
+def test_team_width_rule():
+    # Every k the K1/K2 kernel takes gets a power of two from 1 to 32
+    # whose coordinates a lane cover the row.
+    for k in range(1, simplex_qp.MAX_K + 1):
+        team = simplex_qp.team_width(k)
+        assert 1 <= team <= 32 and team & (team - 1) == 0, (k, team)
+        assert math.ceil(k / team) * team >= k
+
+
+def test_team_width_rule_is_instantiated():
+    # csrc/simplex_qp.cu builds, for both dtypes, the (team, NC) pairs
+    # marked RULE in SIMPLEX_QP_PAIRS, and a launch takes the first pair
+    # of its team width with NC >= ceil(k / team): every k has one, and
+    # every RULE pair serves some k.
+    source = simplex_qp.PACKED_SOURCE.read_text()
+    # The macro and its continued lines.
+    listed = re.search(r"#define SIMPLEX_QP_PAIRS\(RULE, SWEEP\)"
+                       r"((?:.*\\\n)*.*)", source).group(1)
+    rule = [(int(a), int(b))
+            for a, b in re.findall(r"\bRULE\((\d+), (\d+)\)", listed)]
+    assert rule == sorted(rule)
+    used = set()
+    for k in range(1, simplex_qp.MAX_K + 1):
+        team = simplex_qp.team_width(k)
+        fits = [p for p in rule
+                if p[0] == team and p[1] >= math.ceil(k / team)]
+        assert fits, k
+        used.add(fits[0])
+    assert used == set(rule)
