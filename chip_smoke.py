@@ -34,7 +34,9 @@ the run with a non-zero exit and no result line:
    (1, 1788, 6) float32 and a masked case, float64 at (3, 257, 100)
    after 3 iterations and at convergence and at (1, 300, 128) (a
    128 KiB Hessian in shared memory); then the same times as for K1 at
-   each path's shape.
+   each path's shape, and for K3/K4 the most iterations a row took and
+   the device time of that slowest row launched alone (n = 1), the
+   latency floor of a launch.
 6. Small fit: the port's ``aa_fit_restarts`` in float64 on a numpy
    array with no ``device`` (so on the card) and with ``device='cpu'``
    (K1 and its plain version) from the same initial states, and an
@@ -335,13 +337,26 @@ def device_ms(fn, reps=5):
 
 
 def mean_iterations(plain, args, **kw):
-    """Mean iterations a row takes on ``args``, from the row-iterations
-    that the plain version counts."""
+    """The mean and the most iterations a row takes on ``args``, from
+    the counts of the plain version, and the slowest row ``(group,
+    row)``."""
     from convex_dim_red_tpu_torch.ops import simplex_qp
     simplex_qp.PLAIN_ROW_ITERATIONS = 0
+    simplex_qp.PLAIN_MAX_ROW_ITERATIONS = 0
     out = plain(*args, **kw)
     rows = out.numel() // out.shape[-1]
-    return simplex_qp.PLAIN_ROW_ITERATIONS / rows
+    return (simplex_qp.PLAIN_ROW_ITERATIONS / rows,
+            simplex_qp.PLAIN_MAX_ROW_ITERATIONS, simplex_qp.PLAIN_SLOWEST_ROW)
+
+
+def lone_row(args, row):
+    """The operands of row ``(group, row)`` of ``args`` alone (n = 1),
+    grouped or single-Hessian like ``args``."""
+    r, i = row
+    if args[1].ndim == 2:
+        return args[0], args[1][i:i + 1], args[2][i:i + 1]
+    return (args[0][r:r + 1], args[1][r:r + 1, i:i + 1],
+            args[2][r:r + 1, i:i + 1])
 
 
 def qp_bound(R, n, k, dtype, iterations, projection):
@@ -367,11 +382,13 @@ def qp_bound(R, n, k, dtype, iterations, projection):
 
 
 def kernel_times(name, kernel, plain, args, projection, team, threads,
-                 **kw):
-    """The times, mean iterations and bound of one kernel at ``args``:
-    the wrapper's (CUDA events), the device's (CUDA graph), the plain
-    version's, and the launch floor (an empty kernel on the same grid,
-    timed like the device time).  Printed and returned."""
+                 lone=False, **kw):
+    """The times, iterations and bound of one kernel at ``args``: the
+    wrapper's (CUDA events), the device's (CUDA graph), the plain
+    version's, the launch floor (an empty kernel on the grid of a block
+    per ``threads // team`` rows, timed like the device time) and, with
+    ``lone``, the device time of the slowest row launched alone.  Printed
+    and returned."""
     from convex_dim_red_tpu_torch.ops import simplex_qp
     Bs = args[1]
     R, n, k = (1,) * (3 - Bs.ndim) + tuple(Bs.shape)
@@ -379,10 +396,16 @@ def kernel_times(name, kernel, plain, args, projection, team, threads,
     dev = device_ms(lambda: kernel(*args, projection=projection, **kw))
     plain_ms = cuda_median_ms(
         lambda: plain(*args, projection=projection, **kw))
-    iterations = mean_iterations(plain, args, projection=projection, **kw)
+    iterations, most, slowest = mean_iterations(
+        plain, args, projection=projection, **kw)
     floor = device_ms(lambda: simplex_qp._empty_launch(team, threads, R, n))
     bound = qp_bound(R, n, k, Bs.dtype, iterations, projection)
     share = max(bound["bound_ms"], floor) / dev
+    extra = {}
+    if lone:
+        one = lone_row(args, slowest)
+        extra["lone_row_ms"] = device_ms(
+            lambda: kernel(*one, projection=projection, **kw))
     print("  %s at (%d, %d, %d) %s %s: device %.5f ms a launch (CUDA graph "
           "of %d), wrapper %.4f ms (CUDA events, median of 10), plain "
           "version %.4f ms; mean iterations of a row %.3f; bound %.5f ms "
@@ -394,10 +417,16 @@ def kernel_times(name, kernel, plain, args, projection, team, threads,
              bound["bound_by"], bound["bytes"], bound["bytes_ms"],
              bound["flops"], bound["flops_per_coordinate"], bound["ops_ms"],
              floor, 100.0 * share))
+    print("  %s: most iterations of a row %d (row %s)%s"
+          % (name, most, slowest, "" if not lone else
+             "; that row alone %.5f ms a launch (CUDA graph of %d); device "
+             "time / lone-row time %.2f" % (extra["lone_row_ms"],
+                                            GRAPH_LAUNCHES,
+                                            dev / extra["lone_row_ms"])))
     return dict(ms=ms, plain_ms=plain_ms, device_ms=dev,
                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
                 library_ms=None, launch_floor_ms=floor,
-                mean_iterations=iterations)
+                mean_iterations=iterations, max_iterations=most, **extra)
 
 
 def phase_sweep():
@@ -551,15 +580,16 @@ def phase_more_kernels():
     torch.cuda.synchronize()
 
     out = {"K2": packed_times("K2", k2["kernel"], k2["plain"], single)}
-    # K3/K4 take the bisection only; their grid is that of team width 32
-    # in blocks of 256 lanes (csrc/simplex_qp_unpacked.cu: a warp a row,
-    # 8 warps a block).
+    # K3/K4 take the bisection only; the launch floor is an empty kernel
+    # on a grid of a block per 8 rows (team width 32 in blocks of 256
+    # lanes), at least the grid of csrc/simplex_qp_unpacked.cu, which
+    # launches only the blocks that can be resident.
     for key, kind, args in (("K3", k3, wide),
                             ("K4", k4, [t[0] for t in wide])):
         out[key] = kernel_times(
             key, lambda *a, projection, **kw: kind["kernel"](*a, **kw),
             lambda *a, projection, **kw: kind["plain"](*a, **kw), args,
-            "bisect", 32, 256, max_iterations=1000)
+            "bisect", 32, 256, lone=True, max_iterations=1000)
     return {key: dict(max_abs_err=errors[key], **times)
             for key, times in out.items()}
 

@@ -21,7 +21,10 @@ csrc/simplex_qp.cu).
   is K1 with one group): :func:`team_width` lanes solve one row, with
   the Michelot or the bisection projection.  K3 and K4 run the
   one-warp-per-row kernel of ``csrc/simplex_qp_unpacked.cu`` (K4 is K3
-  with one group), bisection only, as on the TPU.
+  with one group), bisection only, as on the TPU: its resident warps
+  take rows from a per-group counter, and its threshold search takes
+  two halvings a round (:func:`_bisect_threshold_search` is that
+  search in PyTorch, for the tests).
 - Each library is built with ``nvcc`` for ``sm_90a`` at first use into
   ``_build/`` (the file name carries a hash of the source and flags)
   and bound with ``ctypes``; ``csrc/simplex_qp.cu`` is built once per
@@ -34,7 +37,8 @@ csrc/simplex_qp.cu).
   (K1, and K2 at R = 1) and :func:`quad_simplex_qp_grouped_reference`
   (the same loop with bisection and k up to 128: K3, and K4 at R = 1).
   They count the row-iterations they run in
-  :data:`PLAIN_ROW_ITERATIONS`.
+  :data:`PLAIN_ROW_ITERATIONS` and the most iterations a row took in
+  :data:`PLAIN_MAX_ROW_ITERATIONS` (that row: :data:`PLAIN_SLOWEST_ROW`).
 
 The solver arguments of every wrapper are ``max_iterations`` (1000),
 ``alpha0`` (-1, i.e. from the first projected gradient), ``alpha_min``
@@ -59,6 +63,8 @@ __all__ = [
     "GROUPED_LAUNCHES",
     "UNPACKED_LAUNCHES",
     "PLAIN_ROW_ITERATIONS",
+    "PLAIN_MAX_ROW_ITERATIONS",
+    "PLAIN_SLOWEST_ROW",
     "PACKED_THREADS",
     "team_width",
     "quad_simplex_qp_packed_grouped",
@@ -96,6 +102,15 @@ UNPACKED_LAUNCHES = 0
 #: number of iterations a row takes on that input.
 PLAIN_ROW_ITERATIONS = 0
 
+#: The most iterations one row took in a call of a plain version: the
+#: largest over the calls since it was last set to 0.
+PLAIN_MAX_ROW_ITERATIONS = 0
+
+#: ``(group, row)`` of the first row that took
+#: :data:`PLAIN_MAX_ROW_ITERATIONS` iterations, in the call that raised it
+#: (None before any).
+PLAIN_SLOWEST_ROW = None
+
 #: Lanes per block of the K1/K2 kernel (a multiple of 32, at most 256),
 #: measured on an H100 (PERF.md, section 6, team-width sweep).
 PACKED_THREADS = 128
@@ -128,7 +143,9 @@ _PACKED_SYMBOLS = {
     "simplex_qp_empty_launch": [ctypes.c_int] * 4 + [ctypes.c_void_p],
 }
 _UNPACKED_SYMBOLS = {
-    "simplex_qp_unpacked_launch": ([ctypes.c_int] + [ctypes.c_void_p] * 4
+    # (dtype, row counters, As, Bs, X0s, out, R, n, k, mask words,
+    # solver arguments, stream)
+    "simplex_qp_unpacked_launch": ([ctypes.c_int] + [ctypes.c_void_p] * 5
                                    + [ctypes.c_int] * 3
                                    + [ctypes.c_uint64] * 2
                                    + _SOLVE_ARGTYPES),
@@ -355,8 +372,10 @@ def _unpacked(As, Bs, X0s, mask, kwargs):
     if X0s.device.type == "cpu":
         return _solve_plain(As, Bs, X0s, mask_h, "bisect", **kw), False
     bits = _mask_bits(mask_h)
+    # The per-group row counters; the launch zeroes them on the stream.
+    next_row = torch.empty((R,), dtype=torch.int32, device=X0s.device)
     return _launch(load_unpacked_library, "simplex_qp_unpacked_launch",
-                   As, Bs, X0s, R, n, (),
+                   As, Bs, X0s, R, n, (next_row.data_ptr(),),
                    (R, n, k, bits & (2 ** 64 - 1), bits >> 64,
                     *_solve_args(kw, X0s.dtype)))
 
@@ -443,12 +462,55 @@ def _project(x, mask, projection, k, steps):
         lo = hi - 1.0
         for _ in range(steps):
             mid = 0.5 * (lo + hi)
-            s = torch.sum(torch.where(mask, torch.clamp(x - mid, min=0.0),
-                                      0.0), dim=-1, keepdim=True)
-            too_big = s > 1.0
+            too_big = _threshold_excess(x, mask, mid) > 1.0
             lo = torch.where(too_big, mid, lo)
             hi = torch.where(too_big, hi, mid)
         tau = 0.5 * (lo + hi)
+    return torch.where(mask, torch.clamp(x - tau, min=0.0), 0.0)
+
+
+def _threshold_excess(x, mask, t):
+    """Row sums of ``max(x - t, 0)`` over the coordinates in ``mask``:
+    above 1, the simplex threshold lies above ``t``."""
+    return torch.sum(torch.where(mask, torch.clamp(x - t, min=0.0), 0.0),
+                     dim=-1, keepdim=True)
+
+
+#: Halvings a round of the threshold search of
+#: ``csrc/simplex_qp_unpacked.cu`` (its ``kLevels``).
+_SEARCH_LEVELS = 2
+
+
+def _bisect_threshold_search(x, mask, steps):
+    """``_project(x, mask, 'bisect', k, steps)`` with the threshold
+    search of ``csrc/simplex_qp_unpacked.cu``: rounds of
+    :data:`_SEARCH_LEVELS` halvings (``steps`` is a multiple of it).  A
+    round evaluates the excess at every midpoint that one halving at a
+    time could visit in the round's halvings, each computed as that
+    bisection computes it, then walks the decision tree over them, so it
+    ends on the same bracket bit for bit.  For the tests only."""
+    m = _SEARCH_LEVELS
+    assert steps % m == 0
+    hi = torch.amax(torch.where(mask, x, -1e30), dim=-1, keepdim=True)
+    lo = hi - 1.0
+    for _ in range(steps // m):
+        # Node n of the decision tree (heap order, root 1) halves its
+        # sub-bracket; child 2n keeps the lower half (excess <= 1),
+        # 2n + 1 the upper.
+        node_lo, node_hi, mid, big = {1: lo}, {1: hi}, {}, {}
+        for n in range(1, 2 ** m):
+            mid[n] = 0.5 * (node_lo[n] + node_hi[n])
+            big[n] = _threshold_excess(x, mask, mid[n]) > 1.0
+            node_lo[2 * n], node_hi[2 * n] = node_lo[n], mid[n]
+            node_lo[2 * n + 1], node_hi[2 * n + 1] = mid[n], node_hi[n]
+        node = torch.ones_like(lo, dtype=torch.long)
+        for level in range(m):
+            for n in range(2 ** level, 2 ** (level + 1)):
+                at = node == n
+                lo = torch.where(at & big[n], mid[n], lo)
+                hi = torch.where(at & ~big[n], mid[n], hi)
+                node = torch.where(at, 2 * n + big[n].long(), node)
+    tau = 0.5 * (lo + hi)
     return torch.where(mask, torch.clamp(x - tau, min=0.0), 0.0)
 
 
@@ -480,7 +542,7 @@ def quad_simplex_qp_grouped_reference(As, Bs, X0s, mask=None,
 
 def _solve_plain(As, Bs, X0s, mask_h, projection, *, max_iterations,
                  alpha0, alpha_min, alpha_max, epsilon_one, epsilon_two):
-    global PLAIN_ROW_ITERATIONS
+    global PLAIN_ROW_ITERATIONS, PLAIN_MAX_ROW_ITERATIONS, PLAIN_SLOWEST_ROW
     R, n, k = X0s.shape
     dtype = X0s.dtype
     mask = mask_h.to(X0s.device)
@@ -502,6 +564,7 @@ def _solve_plain(As, Bs, X0s, mask_h, projection, *, max_iterations,
         alpha = torch.clamp(1.0 / ainv, alpha_min, alpha_max)
 
     active = torch.ones((R, n, 1), dtype=torch.bool, device=X0s.device)
+    iterations = torch.zeros((R, n), dtype=torch.long, device=X0s.device)
     stall = torch.zeros((R, n, 1), dtype=dtype, device=X0s.device)
     progress_eps = 32.0 * torch.finfo(dtype).eps
     tiny = torch.finfo(dtype).tiny
@@ -514,6 +577,7 @@ def _solve_plain(As, Bs, X0s, mask_h, projection, *, max_iterations,
         if n_active == 0:
             break
         PLAIN_ROW_ITERATIONS += n_active
+        iterations += active[..., 0]
         G = AX + Bs
         alpha_used = alpha
         D = project(X - alpha * G) - X
@@ -545,5 +609,10 @@ def _solve_plain(As, Bs, X0s, mask_h, projection, *, max_iterations,
         converged = ((sksk < (epsilon_two * scale) * (epsilon_two * scale))
                      | (dinf < epsilon_one * scale) | (stall >= 3.0))
         active = active & ~converged
+    if iterations.numel():
+        most = int(iterations.max())
+        if most > PLAIN_MAX_ROW_ITERATIONS:
+            PLAIN_MAX_ROW_ITERATIONS = most
+            PLAIN_SLOWEST_ROW = divmod(int(iterations.argmax()), n)
     # Restore exact feasibility lost to incremental-update rounding.
     return project(X)

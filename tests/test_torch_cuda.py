@@ -1,6 +1,7 @@
 """The simplex-QP CUDA kernels against their plain versions, on the
 card: K1 and K2 (csrc/simplex_qp.cu), K3 and K4
-(csrc/simplex_qp_unpacked.cu).
+(csrc/simplex_qp_unpacked.cu), and the K3/K4 kernel's scheduling of
+rows (the same bits whatever warp solves a row).
 
 Marked ``cuda``: the kernel has no CPU mode, so these tests skip where
 no CUDA device is found.  tests/conftest.py imports JAX, which a GPU
@@ -221,6 +222,108 @@ def test_unpacked_converged_matches_plain(cuda, R, n, k, dtype):
         assert float((got - want).abs().max()) <= 1e-7
     assert float((got.double().sum(dim=2) - 1).abs().max()) <= 1e-5
     assert float(got.min()) >= 0.0
+
+
+def _mixed_groups(k, R, n, dtype, device):
+    """R groups of ``_problem`` rows (tens of iterations each at k = 96)
+    in which every third row starts at the vertex that its linear term
+    pulls to and stops after one iteration, so that the warps of the
+    K3/K4 kernel take rows from their group's counter at different
+    times."""
+    As, Bs, X0s = (t.cpu().numpy() for t in _problem(100 * k + R, R, n, k,
+                                                     torch.float64, "cpu"))
+    for i in range(0, n, 3):
+        X0s[:, i] = 0.0
+        X0s[:, i, i % k] = 1.0
+        Bs[:, i, i % k] = -100.0
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device)
+                 for a in (As, Bs, X0s))
+
+
+def _unpacked_mask(k):
+    return (np.arange(k) % 7 != 3) if k > 3 else None
+
+
+def _hold_to_plain(got, args, mask, dtype):
+    """K3's result against its plain version on the same card, at the
+    tolerances of chip_smoke.py."""
+    want = simplex_qp.quad_simplex_qp_grouped_reference(
+        *args, mask=mask, max_iterations=1000)
+    f_got, f_want = _objective(got, *args[:2]), _objective(want, *args[:2])
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert float(((f_got - f_want).abs() / (1 + f_want.abs())).max()) <= tol
+    assert float((got.double().sum(dim=2) - 1).abs().max()) <= 1e-5
+    assert float(got.min()) >= 0.0
+    if mask is not None:
+        off = torch.as_tensor(~mask, device=got.device)
+        assert bool((got[:, :, off] == 0).all())
+
+
+_SCHEDULING_CASES = pytest.mark.parametrize(
+    "dtype", [torch.float32, torch.float64])
+_SCHEDULING_WIDTHS = pytest.mark.parametrize("k", [1, 33, 96, 128])
+
+
+@_SCHEDULING_CASES
+@_SCHEDULING_WIDTHS
+def test_unpacked_same_input_gives_the_same_bits(cuda, k, dtype):
+    # Warps take rows from a counter in whatever order they get there;
+    # the result must not depend on it.
+    args = _mixed_groups(k, 3, 90, dtype, cuda)
+    mask = _unpacked_mask(k)
+    first = simplex_qp.quad_simplex_qp_grouped(*args, mask=mask,
+                                               max_iterations=1000)
+    second = simplex_qp.quad_simplex_qp_grouped(*args, mask=mask,
+                                                max_iterations=1000)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _hold_to_plain(first, args, mask, dtype)
+
+
+@_SCHEDULING_CASES
+@_SCHEDULING_WIDTHS
+def test_unpacked_permuted_rows_permute_the_result(cuda, k, dtype):
+    As, Bs, X0s = _mixed_groups(k, 3, 90, dtype, cuda)
+    mask = _unpacked_mask(k)
+    perm = torch.as_tensor(np.random.RandomState(k).permutation(90),
+                           device=cuda)
+    got = simplex_qp.quad_simplex_qp_grouped(As, Bs, X0s, mask=mask,
+                                             max_iterations=1000)
+    permuted = simplex_qp.quad_simplex_qp_grouped(
+        As, Bs[:, perm].contiguous(), X0s[:, perm].contiguous(), mask=mask,
+        max_iterations=1000)
+    torch.cuda.synchronize()
+    assert torch.equal(permuted, got[:, perm])
+    _hold_to_plain(got, (As, Bs, X0s), mask, dtype)
+
+
+@_SCHEDULING_CASES
+@_SCHEDULING_WIDTHS
+def test_unpacked_rows_equal_their_lone_solves(cuda, k, dtype):
+    As, Bs, X0s = _mixed_groups(k, 2, 24, dtype, cuda)
+    mask = _unpacked_mask(k)
+    kw = dict(mask=mask, max_iterations=1000)
+    together = simplex_qp.quad_simplex_qp_grouped(As, Bs, X0s, **kw)
+    for r in range(As.shape[0]):
+        for i in range(Bs.shape[1]):
+            alone = simplex_qp.quad_simplex_qp_grouped(
+                As[r:r + 1], Bs[r:r + 1, i:i + 1].contiguous(),
+                X0s[r:r + 1, i:i + 1].contiguous(), **kw)
+            assert torch.equal(alone, together[r:r + 1, i:i + 1]), (r, i)
+    _hold_to_plain(together, (As, Bs, X0s), mask, dtype)
+
+
+@_SCHEDULING_CASES
+@_SCHEDULING_WIDTHS
+@pytest.mark.parametrize("R,n", [(1, 1), (1, 257), (3, 1)])
+def test_unpacked_one_group_or_one_row(cuda, k, dtype, R, n):
+    # At k = 128 in float64 the Hessian takes 128 KiB of shared memory.
+    args = _problem(7 * k + n, R, n, k, dtype, cuda)
+    mask = _unpacked_mask(k)
+    got = simplex_qp.quad_simplex_qp_grouped(*args, mask=mask,
+                                             max_iterations=1000)
+    torch.cuda.synchronize()
+    _hold_to_plain(got, args, mask, dtype)
 
 
 @pytest.mark.parametrize("projection", ["michelot", "bisect"])

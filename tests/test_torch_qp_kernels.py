@@ -146,6 +146,27 @@ def test_unpacked_plain_version_is_the_packed_loop_with_bisection():
     assert torch.equal(a, b)
 
 
+def test_plain_version_counts_row_iterations():
+    # Three rows start at the vertex their linear term pulls to: their
+    # first step is D = 0, so they stop after one iteration.  The seven
+    # others take 7 to 16 iterations uncapped, so the cap of 4 stops them.
+    As, Bs, X0s = _problem(12, 2, 5, 6)
+    for r, i in ((0, 0), (0, 3), (1, 1)):
+        X0s[r, i] = np.eye(6)[i]
+        Bs[r, i] = -100.0 * np.eye(6)[i]
+    simplex_qp.PLAIN_ROW_ITERATIONS = 0
+    simplex_qp.PLAIN_MAX_ROW_ITERATIONS = 0
+    simplex_qp.quad_simplex_qp_grouped(*_t(As, Bs, X0s), max_iterations=4)
+    assert simplex_qp.PLAIN_ROW_ITERATIONS == 3 * 1 + 7 * 4
+    assert simplex_qp.PLAIN_MAX_ROW_ITERATIONS == 4
+    assert simplex_qp.PLAIN_SLOWEST_ROW == (0, 1)
+    # The most is kept over calls until it is set to 0 again.
+    simplex_qp.quad_simplex_qp_grouped(*_t(As, Bs, X0s), max_iterations=2)
+    assert simplex_qp.PLAIN_ROW_ITERATIONS == 31 + 3 * 1 + 7 * 2
+    assert simplex_qp.PLAIN_MAX_ROW_ITERATIONS == 4
+    assert simplex_qp.PLAIN_SLOWEST_ROW == (0, 1)
+
+
 @pytest.mark.parametrize("call", ["packed_k65", "unpacked_k129",
                                   "packed_bad_rank", "unknown_argument",
                                   "unpacked_bad_projection"])
