@@ -56,11 +56,36 @@ the run with a non-zero exit and no result line:
    cost to the fit's.
 9. k = 96 at full width: the estimator with ``'pallas'`` weights (K4)
    and its transform, and ``aa_fit_restarts`` with 4 restarts (K3).
+10. PCA -> GPNH, the JAX package's "config 4"
+    (benchmarks/run_all.py:110-136), not cut: ``PCA(167)`` of a
+    732 x 8192 matrix (Gram path), then ``gpnh_fit_restarts`` with k=4,
+    lambda_W 1e-3, rel_delta_f 1e-5, at most 300 iterations and 1000 QP
+    iterations, best of 16 and of 100, each with the one-shot default
+    (``compact_iterations=None``: rounds of 32, all restarts in one
+    chunk), once to warm up and once timed; the
+    winner is re-costed on the host in float64 and held to the
+    reference costs; then K1's times, iterations and bound at the
+    path's shape (100, 732, 4), on the operands of its first and its
+    33rd launch.
+11. The same best-of-100 fit in chunks of 25 (``compact_iterations=32,
+    restart_chunk=25``) from the same seed, once to warm up and once
+    timed: per-restart costs and the winner held to the one-shot
+    default's, and the number of restarts whose ``n_iters`` differ
+    printed.
+12. ``GPNHConvexCoding(4, ...)`` on the PCs with the default weights
+    backend (the row solver) and with ``'pallas'`` (K2), each fit then
+    ``transform``: the cost trace to the watchdog, the device cost to
+    its float64 audit, the transform's cost to the fit's, the K2
+    launches.
+13. The AA main path's workload (phase 7) with the one-shot default
+    (chunks of 25), once: phase 7's schedule through the default
+    argument, the audit held to 3809.80 and per-restart costs to phase
+    7's run.
 
 Each path runs with every launch count set to 0 just before it and read
 just after.  The last lines of standard output are the card's name and
-power limit, a JSON object with every kernel's launches, error, times
-and bound, and the JSON result line.
+power limit, a JSON object with every kernel's launches (in all and by
+path), error, times and bound, and the JSON result line.
 """
 
 import json
@@ -105,6 +130,20 @@ KERNELS = (
 )
 #: The estimator path at k = 96 (K3, K4).
 WIDE_K = 96
+#: The PCA -> GPNH workload, the JAX package's config 4
+#: (benchmarks/run_all.py:110-136): data shape, PCA modes, GPNH settings.
+GPNH_SAMPLES, GPNH_FEATURES, PCA_MODES, GPNH_K = 732, 8192, 167, 4
+GPNH_FIT = dict(lambda_W=1e-3, tolerance=1e-5,
+                stopping_criterion='rel_delta_f', max_iterations=300,
+                weights_solver_kwargs={'max_iterations': 1000})
+#: Reference costs of config 4: the JAX package's best of 100 on the TPU
+#: (benchmarks/results.json, config4.ref_scale.cost) and the measured
+#: NumPy float64 baseline's best of 16
+#: (benchmarks/baselines_measured.json, config4.cost), with the relative
+#: limits the port's float64 audits are held to.
+GPNH_REFERENCE = {100: (2420.1641, 1e-4), 16: (2420.1787, 1e-3)}
+#: Relative limit of the per-restart costs of two schedulers.
+SCHEDULER_RTOL = 1e-5
 DEVICE = "cuda"
 
 #: The H100 SXM's published rates (NVIDIA's data sheet, at 700 W): HBM
@@ -136,13 +175,13 @@ def check(ok, message):
         raise AssertionError(message)
 
 
-def make_data():
-    """bench.py:make_data: rank-8 structure plus noise, standardised,
-    float32."""
+def make_data(n=N_SAMPLES, d=N_FEATURES):
+    """bench.py:make_data (benchmarks/run_all.py:_hadisst_scale_data):
+    rank-8 structure plus noise, standardised, float32."""
     rng = np.random.RandomState(42)
-    U = rng.standard_normal((N_SAMPLES, 8))
-    V = rng.standard_normal((8, N_FEATURES))
-    X = U @ V + 0.3 * rng.standard_normal((N_SAMPLES, N_FEATURES))
+    U = rng.standard_normal((n, 8))
+    V = rng.standard_normal((8, d))
+    X = U @ V + 0.3 * rng.standard_normal((n, d))
     X -= X.mean(axis=0)
     X /= X.std(axis=0) + 1e-12
     return X.astype(np.float32)
@@ -631,23 +670,34 @@ def phase_small_fit():
               restart_chunk=4)
     kw['weights_solver_kwargs'] = dict(kw['weights_solver_kwargs'],
                                        backend='pallas')
-    res = {dev: aa_fit_restarts(X, 6, torch.Generator().manual_seed(0), 8,
-                                **kw, **({} if dev == "cuda" else
-                                         dict(device=dev)))
-           for dev in ("cuda", "cpu")}
-    torch.cuda.synchronize()
+    res, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res[dev] = aa_fit_restarts(X, 6, torch.Generator().manual_seed(0),
+                                   8, **kw, **({} if dev == "cuda" else
+                                               dict(device=dev)))
+        torch.cuda.synchronize()
+        walls[dev] = time.perf_counter() - t0
     for dev, r in res.items():
         check(r["weights"].device.type == dev,
               "aa_fit_restarts(numpy%s) ran on %s"
               % ("" if dev == "cuda" else ", device='cpu'",
                  r["weights"].device))
+    # Two iterations are enough to show where the fit runs: the
+    # estimator's default dictionary step takes up to 10,000 SPG
+    # iterations an outer iteration.
+    t0 = time.perf_counter()
     model = ArchetypalAnalysis(6, init='furthest_sum', random_state=0,
-                               max_iterations=20).fit(X)
+                               max_iterations=2).fit(X)
+    torch.cuda.synchronize()
+    walls["estimator"] = time.perf_counter() - t0
     check(model.weights.device.type == "cuda"
           and model.archetypes.device.type == "cuda",
           "ArchetypalAnalysis.fit(numpy) ran on %s" % model.weights.device)
     print("  a numpy array with no device= ran aa_fit_restarts and "
-          "ArchetypalAnalysis.fit on the card")
+          "ArchetypalAnalysis.fit on the card (walls: restarts %.2f s on "
+          "the card, %.2f s on the CPU; estimator %.2f s)"
+          % (walls["cuda"], walls["cpu"], walls["estimator"]))
     rel = float(np.max(np.abs(res["cuda"]["costs"] / res["cpu"]["costs"]
                               - 1.0)))
     print("  float64 300x40, k=6, 8 restarts: costs on the card vs the "
@@ -666,6 +716,13 @@ def audit_cost_f64(result, X32):
     D = result['dictionary'].double().cpu().numpy()
     resid = Z @ (D @ X64) - X64
     return 0.5 * float(np.sum(resid * resid)) / X64.shape[0]
+
+
+def add_launches(total, launches):
+    """Add one path's launch counts to ``total``; returns ``total``."""
+    for key, count in launches.items():
+        total[key] += count
+    return total
 
 
 def reset_launches():
@@ -716,11 +773,10 @@ def phase_main_path(card):
         check(dev <= 1e-4, "%s rows off the simplex by %.3e" % (name, dev))
         check(float(M.min()) >= 0.0, name + " has negative entries")
     check(bool(np.all(np.isfinite(result['costs']))), "non-finite costs")
-    check(launches["K1"] >= -(-total_iters // RESTART_CHUNK),
-          "kernel launches %d < restart-iterations / chunk (%d / %d)"
-          % (launches["K1"], total_iters, RESTART_CHUNK))
-    check(launches["K2"] == launches["K3"] == launches["K4"] == 0,
-          "the main path launched another kernel than K1: %s" % launches)
+    used = compacted_launches(n_iters, RESTART_CHUNK, COMPACT_ITERS,
+                              MAX_ITER)
+    check(launches == dict(K1=used, K2=0, K3=0, K4=0),
+          "main path: launches %s, expected %d of K1" % (launches, used))
     audit = audit_cost_f64(result, X_host)
     rel = abs(audit / REFERENCE_AUDITED_COST - 1.0)
     print("  device cost %.4f, float64 audit %.4f, JAX reference audit "
@@ -733,7 +789,7 @@ def phase_main_path(card):
              total_iters / elapsed, launches["K1"], peak_gb, card))
     check(rel <= AUDIT_RTOL, "audited cost %.4f is %.2e from %.2f"
           % (audit, rel, REFERENCE_AUDITED_COST))
-    return launches["K1"], X_host
+    return launches, X_host, result, elapsed
 
 
 def check_factors(name, model, X):
@@ -794,7 +850,7 @@ def phase_estimator(X_host, card):
 
     thresh = watchdog_threshold(X, TOL)
     fits = {}
-    k2_launches = 0
+    total = dict.fromkeys(read_launches(), 0)
     for label, backend in (("default (row solver)", None),
                            ("pallas (K2)", "pallas")):
         model = make(backend)
@@ -822,7 +878,7 @@ def phase_estimator(X_host, card):
             check(launches["K2"] == model.n_iter,
                   "pallas fit: %d K2 launches for %d iterations"
                   % (launches["K2"], model.n_iter))
-            k2_launches += launches["K2"]
+            add_launches(total, launches)
         else:
             check(sum(launches.values()) == 0,
                   "the row-solver fit launched a kernel: %s" % launches)
@@ -844,7 +900,7 @@ def phase_estimator(X_host, card):
     dev = float((W.double().sum(dim=1) - 1.0).abs().max())
     check(dev <= 1e-4 and float(W.min()) >= 0.0,
           "transform weights off the simplex by %.3e" % dev)
-    return k2_launches + launches["K2"]
+    return add_launches(total, launches)
 
 
 def phase_wide(X_host):
@@ -898,35 +954,367 @@ def phase_wide(X_host):
         dev = float((M.double().sum(dim=1) - 1.0).abs().max())
         check(dev <= 1e-4 and float(M.min()) >= 0.0,
               "k=96 restarts: %s rows off the simplex by %.3e" % (name, dev))
-    return rst["K3"], est["K4"]
+    return {"AA estimator k=96, fit + transform": est,
+            "AA best of 4, k=96, compaction": rst}
+
+
+def gpnh_audit(result, pcs_host):
+    """The GPNH winner re-costed on the host in float64, its penalty from
+    the pairwise definition: ``0.5 ||X - Z W'||^2 / n + lambda_W 2 / (k d
+    (k - 1)) sum_{i<j} ||w_i - w_j||^2``."""
+    X = np.asarray(pcs_host, np.float64)
+    Z = result['weights'].double().cpu().numpy()
+    W = result['dictionary'].double().cpu().numpy()
+    d, k = W.shape
+    pairs = sum(np.sum((W[:, i] - W[:, j]) ** 2)
+                for i in range(k) for j in range(i + 1, k))
+    penalty = 2.0 / (k * d * (k - 1)) * pairs
+    resid = X - Z @ W.T
+    return (0.5 * float(np.sum(resid * resid)) / X.shape[0]
+            + GPNH_FIT['lambda_W'] * penalty)
+
+
+def capture_k1_operands(run, calls):
+    """Run ``run()`` with the grouped QP dispatch's K1 wrapper recording
+    the operands of its calls numbered ``calls`` (from 0): ``{call: (As,
+    Bs, X0s, solver arguments)}``."""
+    from convex_dim_red_tpu_torch.ops import simplex_qp
+    from convex_dim_red_tpu_torch.solvers import spg
+    seen, captured = [0], {}
+
+    def recording(As, Bs, X0s, **kw):
+        if seen[0] in calls:
+            captured[seen[0]] = (As.clone(), Bs.clone(), X0s.clone(), kw)
+        seen[0] += 1
+        return simplex_qp.quad_simplex_qp_packed_grouped(As, Bs, X0s, **kw)
+
+    spg.quad_simplex_qp_packed_grouped = recording
+    try:
+        run()
+    finally:
+        spg.quad_simplex_qp_packed_grouped = (
+            simplex_qp.quad_simplex_qp_packed_grouped)
+    return captured
+
+
+def compacted_launches(n_iters, chunk, round_iterations, max_iterations):
+    """K1 launches of a compacted restart fit whose restarts took
+    ``n_iters``: each round of ``M = round_iterations`` runs every chunk
+    of ``chunk`` restarts still pending (those with more than ``r M``
+    iterations) for one grouped QP call an iteration."""
+    n_iters = np.asarray(n_iters)
+    launches, used = 0, 0
+    while used < max_iterations:
+        pending = int(np.sum(n_iters > used))
+        if not pending:
+            break
+        M = min(round_iterations, max_iterations - used)
+        launches += -(-pending // min(chunk, len(n_iters))) * M
+        used += M
+    return launches
+
+
+def check_simplex_rows(name, M):
+    dev = float((M.double().sum(dim=1) - 1.0).abs().max())
+    check(dev <= 1e-4 and float(M.min()) >= 0.0,
+          "%s rows off the simplex by %.3e" % (name, dev))
+
+
+def phase_pca_gpnh(card):
+    """Config 4 at full size: PCA(167) of 732 x 8192 on the card, then
+    the best-of-16 and best-of-100 GPNH fits, one-shot default; K1 at the
+    path's shape."""
+    import torch
+    from convex_dim_red_tpu_torch import PCA, gpnh_fit_restarts
+    from convex_dim_red_tpu_torch.ops import simplex_qp as sq
+    from convex_dim_red_tpu_torch.parallel.restarts import _ONE_SHOT_ROUND
+    X = torch.as_tensor(make_data(GPNH_SAMPLES, GPNH_FEATURES),
+                        device=DEVICE)
+    paths = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    pca = PCA(PCA_MODES)
+    pcs = pca.fit_transform(X)
+    torch.cuda.synchronize()
+    pca_s = time.perf_counter() - t0
+    paths["PCA(167)"] = read_launches()
+    check(pcs.shape == (GPNH_SAMPLES, PCA_MODES)
+          and bool(torch.isfinite(pcs).all()), "PCA scores: %s, finite %s"
+          % (tuple(pcs.shape), bool(torch.isfinite(pcs).all())))
+    # The scores come from the Gram's eigenvectors, the transform from
+    # the components X_c' v / s: in float32 a trailing mode carries the
+    # rounding of the leading one, amplified by s_1 / s.
+    again = pca.transform(X)
+    gap = float((again - pcs).abs().max() / pcs.abs().max())
+    print("  PCA(%d) of %dx%d (Gram path): %.3f s (first call), explained "
+          "variance ratio %.4f in all, first three %s; transform(X) vs the "
+          "scores max rel diff %.2e"
+          % (PCA_MODES, GPNH_SAMPLES, GPNH_FEATURES, pca_s,
+             float(np.sum(pca.explained_variance_ratio_)),
+             np.round(pca.explained_variance_ratio_[:3], 4).tolist(), gap))
+    check(gap <= 1e-3, "PCA transform differs from the scores by %.2e"
+          % gap)
+    pcs_host = pcs.cpu().numpy()
+
+    results = {}
+    for n_init in (16, 100):
+        def run():
+            out = gpnh_fit_restarts(pcs, GPNH_K, 0, n_init, **GPNH_FIT)
+            torch.cuda.synchronize()
+            return out
+
+        # The best of 100's first run records K1's operands at its first
+        # launch (random weights, a fresh dictionary) and at the first
+        # launch of its second round (warm weights).
+        t0 = time.perf_counter()
+        if n_init == 100:
+            captured = capture_k1_operands(run, (0, 32))
+        else:
+            run()
+        warm_s = time.perf_counter() - t0
+        reset_launches()
+        t0 = time.perf_counter()
+        res = run()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        paths["GPNH best of %d, one-shot" % n_init] = launches
+        n_iters = res['n_iters']
+        check(bool(np.all(np.isfinite(res['costs']))), "non-finite costs")
+        check_simplex_rows("GPNH weights", res['weights'])
+        used = compacted_launches(n_iters, n_init, _ONE_SHOT_ROUND,
+                                  GPNH_FIT['max_iterations'])
+        check(launches == dict(K1=used, K2=0, K3=0, K4=0),
+              "GPNH best of %d: launches %s, expected %d of K1"
+              % (n_init, launches, used))
+        audit = gpnh_audit(res, pcs_host)
+        ref, rtol = GPNH_REFERENCE[n_init]
+        rel = abs(audit / ref - 1.0)
+        print("  GPNH best of %d: wall %.3f s timed (%.3f s first run), %d "
+              "K1 launches, n_iter %d, n_iters mean %.2f max %d, device "
+              "cost %.4f, float64 audit %.4f (device vs audit %.2e), "
+              "reference %.4f (rel diff %.2e, limit %.0e), on %s"
+              % (n_init, wall, warm_s, launches["K1"], res['n_iter'],
+                 float(np.mean(n_iters)), int(np.max(n_iters)), res['cost'],
+                 audit, abs(res['cost'] / audit - 1.0), ref, rel, rtol,
+                 card))
+        check(rel <= rtol, "GPNH best of %d: audited cost %.4f is %.2e from "
+              "%.4f" % (n_init, audit, rel, ref))
+        results[n_init] = (res, wall)
+
+    # K1 at the path's shape, on the recorded operands.
+    times = {}
+    for call, (As, Bs, X0s, kw) in sorted(captured.items()):
+        projection = kw.pop("projection")
+        check(kw.pop("mask") is None, "a masked GPNH QP")
+        compare_qp("K1 GPNH (100, 732, 4) f32, launch %d" % call, As, Bs,
+                   X0s, tol_obj=1e-5, projection=projection, **kw)
+        times[call] = kernel_times(
+            "K1 GPNH launch %d" % call, sq.quad_simplex_qp_packed_grouped,
+            sq.quad_simplex_qp_packed_grouped_reference, (As, Bs, X0s),
+            projection, sq.team_width(GPNH_K), sq.PACKED_THREADS,
+            lone=True, **kw)
+    return pcs, pcs_host, results, paths, times
+
+
+def scheduler_agreement(name, one_shot, compacted):
+    """Per-restart costs of two schedulers within SCHEDULER_RTOL and the
+    same winner; prints how many restarts' n_iters differ."""
+    rel = float(np.max(np.abs(compacted['costs'] / one_shot['costs']
+                              - 1.0)))
+    differ = int(np.sum(compacted['n_iters'] != one_shot['n_iters']))
+    print("  %s: per-restart costs max rel diff %.2e, winners %d and %d, "
+          "%d of %d restarts' n_iters differ"
+          % (name, rel, one_shot['best_index'], compacted['best_index'],
+             differ, len(one_shot['costs'])))
+    check(rel <= SCHEDULER_RTOL, "%s: costs differ by %.2e" % (name, rel))
+    check(one_shot['best_index'] == compacted['best_index'],
+          "%s: winners %d and %d" % (name, one_shot['best_index'],
+                                     compacted['best_index']))
+
+
+def phase_gpnh_compaction(pcs, one_shot, card):
+    """The best-of-100 GPNH fit under compaction from the same seed, run
+    once to warm up and once timed, as the one-shot default was."""
+    import torch
+    from convex_dim_red_tpu_torch import gpnh_fit_restarts
+
+    def run():
+        out = gpnh_fit_restarts(pcs, GPNH_K, 0, 100,
+                                compact_iterations=COMPACT_ITERS,
+                                restart_chunk=RESTART_CHUNK, **GPNH_FIT)
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    run()
+    warm_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    print("  GPNH best of 100, compaction (rounds of %d, chunks of %d): "
+          "wall %.3f s timed (%.3f s first run; the one-shot default, one "
+          "chunk of 100, %.3f s timed), %d K1 launches, on %s"
+          % (COMPACT_ITERS, RESTART_CHUNK, wall, warm_s, one_shot[1],
+             launches["K1"], card))
+    used = compacted_launches(res['n_iters'], RESTART_CHUNK, COMPACT_ITERS,
+                              GPNH_FIT['max_iterations'])
+    check(launches == dict(K1=used, K2=0, K3=0, K4=0),
+          "GPNH compaction: launches %s, expected %d of K1"
+          % (launches, used))
+    scheduler_agreement("GPNH best of 100, one-shot vs compaction",
+                        one_shot[0], res)
+    return {"GPNH best of 100, compaction": launches}
+
+
+def phase_gpnh_estimator(pcs, pcs_host, card):
+    """GPNHConvexCoding on the PCs: the row solver and K2, each fit then
+    transform."""
+    import torch
+    from convex_dim_red_tpu_torch import GPNHConvexCoding
+    trace = float(torch.sum(pcs.double() * pcs.double()))
+    thresh = max(GPNH_FIT['tolerance'],
+                 64.0 * float(torch.finfo(pcs.dtype).eps) * trace)
+    paths = {}
+    for label, backend in (("default (row solver)", None),
+                           ("pallas (K2)", "pallas")):
+        weights = {'backend': backend} if backend else {}
+        model = GPNHConvexCoding(
+            GPNH_K, lambda_W=GPNH_FIT['lambda_W'], init='random',
+            random_state=0, tolerance=GPNH_FIT['tolerance'],
+            stopping_criterion='rel_delta_f',
+            max_iterations=GPNH_FIT['max_iterations'],
+            weights_solver_kwargs=weights)
+        reset_launches()
+        t0 = time.perf_counter()
+        model.fit(pcs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        audit = gpnh_audit(dict(weights=model.weights,
+                                dictionary=model.dictionary), pcs_host)
+        rel = abs(audit / model.cost - 1.0)
+        rise = float(np.max(model.cost_deltas))
+        print("  fit, weights backend %s: wall %.3f s, n_iter %d, device "
+              "cost %.4f, float64 audit %.4f (rel diff %.2e; best of 100 "
+              "%.4f), largest cost rise %.3e (watchdog %.3e), launches %s, "
+              "on %s" % (label, wall, model.n_iter, model.cost, audit, rel,
+                         GPNH_REFERENCE[100][0], rise, thresh, launches,
+                         card))
+        check_simplex_rows("GPNH fit " + label, model.weights)
+        check(rel <= 1e-4, "%s: audit %.4f vs device cost %.4f"
+              % (label, audit, model.cost))
+        check(rise <= thresh, "%s: the cost rose by %.3e > watchdog %.3e"
+              % (label, rise, thresh))
+        expected = dict(K1=0, K2=model.n_iter if backend else 0, K3=0, K4=0)
+        check(launches == expected, "%s fit: launches %s, expected %s"
+              % (label, launches, expected))
+
+        reset_launches()
+        t0 = time.perf_counter()
+        W, cost = model.transform(pcs)
+        torch.cuda.synchronize()
+        t_wall = time.perf_counter() - t0
+        t_launches = read_launches()
+        print("  transform, weights backend %s: wall %.3f s, cost %.4f "
+              "(fit %.4f), launches %s"
+              % (label, t_wall, cost, model.cost, t_launches))
+        check(cost <= model.cost * (1 + 1e-4),
+              "transform cost %.4f above the fit's %.4f" % (cost, model.cost))
+        check_simplex_rows("GPNH transform " + label, W)
+        check(t_launches["K1"] == t_launches["K3"] == t_launches["K4"] == 0
+              and (t_launches["K2"] > 0 if backend
+                   else t_launches["K2"] == 0),
+              "transform %s: launches %s" % (label, t_launches))
+        paths["GPNH estimator %s, fit + transform" % label] = add_launches(
+            launches, t_launches)
+    return paths
+
+
+def phase_aa_one_shot(X_host, compacted, compacted_wall, card):
+    """The main path's workload with the default
+    ``compact_iterations=None``, once: rounds of 32 over chunks of 25,
+    phase 7's schedule, so the same launches and bits."""
+    import torch
+    from convex_dim_red_tpu_torch import aa_fit_restarts
+    from convex_dim_red_tpu_torch.parallel.restarts import _ONE_SHOT_ROUND
+    X = torch.as_tensor(X_host, device=DEVICE)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = aa_fit_restarts(X, K, 0, N_INIT,
+                          **dict(fit_kwargs(), compact_iterations=None))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check_simplex_rows("AA one-shot Z", res['weights'])
+    check_simplex_rows("AA one-shot C", res['dictionary'])
+    used = compacted_launches(res['n_iters'], RESTART_CHUNK,
+                              _ONE_SHOT_ROUND, MAX_ITER)
+    check(launches == dict(K1=used, K2=0, K3=0, K4=0),
+          "AA one-shot: launches %s, expected %d of K1" % (launches, used))
+    audit = audit_cost_f64(res, X_host)
+    rel = abs(audit / REFERENCE_AUDITED_COST - 1.0)
+    print("  AA best of 100, one-shot default (rounds of %d, chunks of %d): "
+          "wall %.3f s against %.3f s in phase 7, %d K1 launches, n_iters "
+          "mean %.2f, device cost %.4f, float64 audit %.4f (rel diff %.2e "
+          "from %.2f), on %s"
+          % (_ONE_SHOT_ROUND, RESTART_CHUNK, wall, compacted_wall,
+             launches["K1"],
+             float(np.mean(res['n_iters'])), res['cost'], audit, rel,
+             REFERENCE_AUDITED_COST, card))
+    check(rel <= AUDIT_RTOL, "audited cost %.4f is %.2e from %.2f"
+          % (audit, rel, REFERENCE_AUDITED_COST))
+    scheduler_agreement("AA best of 100, one-shot vs compaction", res,
+                        compacted)
+    return {"AA best of 100, one-shot": launches}
 
 
 def main():
     t_start = time.perf_counter()
     card = phase_device()
     import torch
-    print("== build")
+    def phase(name):
+        print("== %s (at %.1f s)" % (name, time.perf_counter() - t_start))
+
+    phase("build")
     phase_build()
-    print("== team-width sweep of the K1/K2 kernel")
+    phase("team-width sweep of the K1/K2 kernel")
     phase_sweep()
-    print("== K1 against its plain version")
+    phase("K1 against its plain version")
     kernels = {"K1": phase_kernel()}
-    print("== K2, K3 and K4 against their plain versions")
+    phase("K2, K3 and K4 against their plain versions")
     kernels.update(phase_more_kernels())
-    print("== small fit, card against CPU")
+    phase("small fit, card against CPU")
     phase_small_fit()
-    print("== main path")
-    launches = {}
-    launches["K1"], X_host = phase_main_path(card)
-    print("== estimator, k=6, full width")
-    launches["K2"] = phase_estimator(X_host, card)
-    print("== k=96, full width")
-    launches["K3"], launches["K4"] = phase_wide(X_host)
+    phase("main path")
+    main_launches, X_host, compacted, compacted_wall = phase_main_path(card)
+    paths = {"AA best of 100, compaction": main_launches}
+    phase("estimator, k=6, full width")
+    paths["AA estimator k=6, fits + transform"] = phase_estimator(X_host,
+                                                                  card)
+    phase("k=96, full width")
+    paths.update(phase_wide(X_host))
+    phase("PCA -> GPNH (config 4), full size")
+    pcs, pcs_host, gpnh, gpnh_paths, k1_gpnh = phase_pca_gpnh(card)
+    paths.update(gpnh_paths)
+    kernels["K1"]["gpnh_shape"] = dict(R=100, n=GPNH_SAMPLES, k=GPNH_K,
+                                       launch=0, **k1_gpnh[0])
+    phase("GPNH best of 100 under compaction")
+    paths.update(phase_gpnh_compaction(pcs, gpnh[100], card))
+    phase("GPNH estimator on the PCs")
+    paths.update(phase_gpnh_estimator(pcs, pcs_host, card))
+    phase("AA main path's workload, one-shot")
+    paths.update(phase_aa_one_shot(X_host, compacted, compacted_wall, card))
     print("all phases passed in %.1f s" % (time.perf_counter() - t_start))
     print(card)
+    by_path = {key: {path: counts[key] for path, counts in paths.items()
+                     if counts[key]}
+               for key, *_ in KERNELS}
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
-        launches=launches[key], **kernels[key])
+        launches=sum(by_path[key].values()),
+        launches_by_path=by_path[key], **kernels[key])
         for key, name, source, replaces, _ in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,14 +4,20 @@ convex_dim_red_tpu.
 The JAX package beside it is the reference.  This package keeps its
 module and function names, runs on PyTorch tensors, and replaces each
 Pallas TPU kernel with a kernel written by hand for NVIDIA Hopper
-(``csrc/``: all four simplex-QP kernels).  It covers archetypal
-analysis so far (ROADMAP.md, queue 1): the ``ArchetypalAnalysis`` and
-``KernelAA`` estimators with ``transform``, the multi-restart fit with
-convergence compaction, FurthestSum, and the SPG solvers they run.  It
-never imports JAX.
+(``csrc/``: all four simplex-QP kernels).  It covers so far
+(ROADMAP.md, queue 1): archetypal analysis (the ``ArchetypalAnalysis``
+and ``KernelAA`` estimators with ``transform``, and the best-of-N fit
+``aa_fit_restarts``), GPNH convex coding (``GPNHConvexCoding`` and
+``gpnh_fit_restarts``), ``PCA``, FurthestSum, and the SPG solvers they
+run.  The best-of-N fits run under convergence compaction, in rounds of
+32 iterations by default (``compact_iterations=None``, the JAX
+package's one-shot default, whose results they give).  It never imports
+JAX.
 """
 
 from .models.archetypal_analysis import ArchetypalAnalysis, KernelAA
+from .models.gpnh_convex_coding import GPNHConvexCoding
+from .models.pca import PCA
 from .ops.furthest_sum import furthest_sum, furthest_sum_device
 from .ops.simplex_projection import (
     simplex_project,
@@ -24,7 +30,7 @@ from .ops.stochastic_matrices import (
     left_stochastic_matrix,
     right_stochastic_matrix,
 )
-from .parallel.restarts import aa_fit_restarts
+from .parallel.restarts import aa_fit_restarts, gpnh_fit_restarts
 from .solvers.spg import (quad_simplex_spg, quad_simplex_spg_batch,
                           quad_simplex_spg_batch_grouped, quad_spg,
                           resolve_qp_backend)
@@ -35,6 +41,8 @@ __version__ = "0.1.0"
 __all__ = [
     "ArchetypalAnalysis",
     "KernelAA",
+    "GPNHConvexCoding",
+    "PCA",
     "furthest_sum",
     "furthest_sum_device",
     "simplex_project",
@@ -45,6 +53,7 @@ __all__ = [
     "left_stochastic_matrix",
     "right_stochastic_matrix",
     "aa_fit_restarts",
+    "gpnh_fit_restarts",
     "quad_spg",
     "quad_simplex_spg",
     "quad_simplex_spg_batch",

@@ -34,7 +34,6 @@ and monotonicity watchdog as the JAX package.
   ROADMAP.md queue 1, item 17.
 """
 
-import numbers
 import time
 import warnings
 
@@ -50,7 +49,8 @@ from ..utils.precision import apply_matmul_precision, matmul_precision_scope
 from ..utils.validation import (as_input, check_array_shape,
                                 check_stochastic_matrix)
 from ._common import (QPSolverConfig, SPGSolverConfig, make_config,
-                      STOPPING_CRITERIA, has_converged)
+                      STOPPING_CRITERIA, _as_generator, _reject_mesh,
+                      _run_fit, check_estimator_params, has_converged)
 
 __all__ = [
     "KernelAA",
@@ -250,11 +250,6 @@ def _kernel_aa_core(K, Z, C, alpha, delta, tolerance, X,
 
 _STAGE_NAMES = ('scale factors', 'dictionary', 'weights')
 
-#: Iterations per chunk of the verbose table (see
-#: :func:`iterate_kernel_aa`), as in the JAX package.
-_VERBOSE_CHUNK = 10
-
-
 def iterate_kernel_aa(K, weights, dictionary, alpha, delta=0,
                       update_weights=True, update_dictionary=True,
                       update_scale_factors=True, tolerance=1e-6,
@@ -265,11 +260,10 @@ def iterate_kernel_aa(K, weights, dictionary, alpha, delta=0,
     avg_time_per_iter, cost_deltas)`` as the JAX function does: ``cost``
     a 0-d tensor, ``n_iter`` the iterations executed, the average time
     the wall clock over the fit divided by ``n_iter``, ``cost_deltas``
-    a numpy array.  ``verbose`` prints the reference's iteration table,
-    in chunks of :data:`_VERBOSE_CHUNK` iterations as the JAX package
-    does (each row's time is its chunk's wall time per iteration).  A
-    cost increase past the watchdog raises ``RuntimeError`` naming the
-    stage (with ``require_monotonic_cost_decrease``, the default).
+    a numpy array.  ``verbose`` prints the reference's iteration table
+    (see ``_common._run_fit``).  A cost increase past the watchdog raises
+    ``RuntimeError`` naming the stage (with
+    ``require_monotonic_cost_decrease``, the default).
     """
     if kwargs.get('stopping_criterion',
                   'abs_delta_f') not in STOPPING_CRITERIA:
@@ -293,10 +287,10 @@ def iterate_kernel_aa(K, weights, dictionary, alpha, delta=0,
     has_data = data is not None
     X = torch.as_tensor(data, device=K.device) if has_data else None
 
-    def core(Z, C, alpha, max_iterations):
-        return _kernel_aa_core(
-            K, Z, C, alpha, torch.as_tensor(delta, dtype=K.dtype,
-                                            device=K.device),
+    def core(state, max_iterations):
+        *state, cost, n_iter, trace, inc, stop = _kernel_aa_core(
+            K, *state, torch.as_tensor(delta, dtype=K.dtype,
+                                       device=K.device),
             tolerance, X, do_scale=(bool(update_scale_factors)
                                     and float(delta) != 0.0),
             do_dict=bool(update_dictionary),
@@ -305,52 +299,12 @@ def iterate_kernel_aa(K, weights, dictionary, alpha, delta=0,
             require_monotonic=require_monotonic, has_data=has_data,
             dict_cfg=dict_cfg, weights_cfg=weights_cfg,
             scale_cfg=scale_cfg)
+        return tuple(state), cost, n_iter, trace, inc, stop
 
     start = time.perf_counter()
-    if verbose:
-        print("*** Kernel AA: n_components = {:d} ***".format(Z.shape[1]))
-        print('{:<12s} | {:<13s} | {:<13s} | {:<12s}'.format(
-            'Iteration', 'Cost', 'Cost delta', 'Time'))
-        print(80 * '-')
-        row = '{:12d} | {: 12.6e} | {: 12.6e} | {: 12.6e}'
-
-        chunk = int(min(_VERBOSE_CHUNK, max_iterations))
-        n_iter = 0
-        stop = False
-        deltas_parts = []
-        inc_flags = np.zeros(3, dtype=bool)
-        cost = None
-        while not stop and n_iter < int(max_iterations):
-            this_chunk = min(chunk, int(max_iterations) - n_iter)
-            t0 = time.perf_counter()
-            Z, C, alpha, cost, n_it, trace, inc, stop = core(
-                Z, C, alpha, this_chunk)
-            dt = time.perf_counter() - t0
-            if n_it == 0:
-                break
-            deltas = trace[:n_it].cpu().numpy()
-            # Cost after in-chunk iteration i: the chunk's final cost
-            # minus the deltas still to come.
-            suffix = np.cumsum(deltas[::-1])[::-1]
-            costs = float(cost) - suffix + deltas
-            for i in range(n_it):
-                print(row.format(n_iter + i + 1, costs[i], deltas[i],
-                                 dt / n_it))
-            deltas_parts.append(deltas)
-            inc_flags |= inc.cpu().numpy()
-            n_iter += n_it
-        if cost is None:
-            # max_iterations == 0: the initial cost, as the quiet path.
-            cost = core(Z, C, alpha, 0)[3]
-        cost_deltas = (np.concatenate(deltas_parts) if deltas_parts
-                       else np.zeros((0,)))
-        if stop and not inc_flags.any():
-            print('*** Converged at iteration {:d} ***'.format(n_iter))
-    else:
-        Z, C, alpha, cost, n_iter, cost_trace, inc, _ = core(
-            Z, C, alpha, int(max_iterations))
-        inc_flags = inc.cpu().numpy()
-        cost_deltas = cost_trace[:n_iter].cpu().numpy()
+    (Z, C, alpha), cost, n_iter, cost_deltas, inc_flags = _run_fit(
+        core, (Z, C, alpha), max_iterations, verbose,
+        "*** Kernel AA: n_components = {:d} ***".format(Z.shape[1]), 80)
     elapsed = time.perf_counter() - start
 
     if require_monotonic and inc_flags.any():
@@ -366,25 +320,6 @@ def iterate_kernel_aa(K, weights, dictionary, alpha, delta=0,
 # ---------------------------------------------------------------------------
 # Initialization
 # ---------------------------------------------------------------------------
-
-
-def _as_generator(random_state):
-    """Coerce an int / None / ``numpy.random.RandomState`` /
-    ``torch.Generator`` into a ``torch.Generator`` (a CPU one unless a
-    generator is given)."""
-    if isinstance(random_state, torch.Generator):
-        return random_state
-    if random_state is None:
-        seed = np.random.randint(2 ** 31 - 1)
-    elif isinstance(random_state, np.random.RandomState):
-        seed = random_state.randint(2 ** 31 - 1)
-    elif isinstance(random_state, (int, np.integer)):
-        seed = int(random_state)
-    else:
-        raise TypeError("random_state must be an int, None, a "
-                        "numpy.random.RandomState or a torch.Generator; "
-                        "got %r" % (random_state,))
-    return torch.Generator().manual_seed(seed)
 
 
 def initialize_kernel_aa_dictionary(kernel, n_components,
@@ -452,12 +387,6 @@ def _check_init_scale_factors(alpha, delta, shape, whom):
         raise ValueError('Initial scale factors infeasible in %s' % whom)
 
 
-def _reject_mesh(mesh):
-    if mesh is not None:
-        raise ValueError("mesh= is not ported yet (ROADMAP.md queue 1, "
-                         "item 17: multi-GPU)")
-
-
 # ---------------------------------------------------------------------------
 # Estimators
 # ---------------------------------------------------------------------------
@@ -506,24 +435,6 @@ class KernelAA:
             'dictionary_solver_kwargs', {})
         self.scale_factors_solver_kwargs = kwargs.get(
             'scale_factors_solver_kwargs', {})
-
-    def _validate_params(self):
-        if not isinstance(self.n_components, (numbers.Integral, np.integer)) \
-                or self.n_components <= 0:
-            raise ValueError(
-                'Number of components must be a positive integer;'
-                ' got (n_components=%r)' % self.n_components)
-        if not isinstance(self.max_iterations,
-                          (numbers.Integral, np.integer)) \
-                or self.max_iterations <= 0:
-            raise ValueError(
-                'Maximum number of iterations must be a positive integer;'
-                ' got (max_iterations=%r)' % self.max_iterations)
-        if not isinstance(self.tolerance, numbers.Number) \
-                or self.tolerance < 0:
-            raise ValueError(
-                'Tolerance for stopping criteria must be positive;'
-                ' got (tolerance=%r)' % self.tolerance)
 
     def _prepare_state(self, kernel, dictionary, weights, alpha,
                        update_dictionary, update_weights, whom, **kwargs):
@@ -575,7 +486,8 @@ class KernelAA:
 
         if self.n_components is None:
             self.n_components = n_samples
-        self._validate_params()
+        check_estimator_params(self.n_components, self.max_iterations,
+                               self.tolerance)
 
         dictionary, weights, alpha = self._prepare_state(
             kernel, dictionary, weights, alpha,

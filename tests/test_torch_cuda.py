@@ -1,7 +1,10 @@
 """The simplex-QP CUDA kernels against their plain versions, on the
 card: K1 and K2 (csrc/simplex_qp.cu), K3 and K4
 (csrc/simplex_qp_unpacked.cu), and the K3/K4 kernel's scheduling of
-rows (the same bits whatever warp solves a row).
+rows (the same bits whatever warp solves a row); then the paths that
+run them against the CPU: a GPNH fit on K2, PCA, and the restart fits'
+default rounds (``compact_iterations=None``) against shorter ones for
+AA and GPNH (K1).
 
 Marked ``cuda``: the kernel has no CPU mode, so these tests skip where
 no CUDA device is found.  tests/conftest.py imports JAX, which a GPU
@@ -21,7 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from convex_dim_red_tpu_torch import aa_fit_restarts
+from convex_dim_red_tpu_torch import (PCA, GPNHConvexCoding,
+                                      aa_fit_restarts, gpnh_fit_restarts)
 from convex_dim_red_tpu_torch.ops import simplex_qp
 
 pytestmark = pytest.mark.cuda
@@ -163,28 +167,58 @@ def _planted(seed, n, d, k, noise):
     return Z @ basis + noise * rng.standard_normal((n, d))
 
 
+#: The small float64 fit of the card-against-CPU tests.  backend='pallas'
+#: on both devices: 'auto' resolves to the row solver on the CPU, which
+#: stops on another rule.
+_SMALL_FIT = dict(init='random', tolerance=1e-6, max_iterations=200,
+                  stopping_criterion='rel_delta_f',
+                  dictionary_solver_kwargs={'max_iterations': 1},
+                  weights_solver_kwargs={'max_iterations': 25,
+                                         'backend': 'pallas'},
+                  restart_chunk=4, compact_iterations=32)
+
+
+def _small_fit(device):
+    return aa_fit_restarts(
+        torch.as_tensor(_planted(0, 300, 40, 6, 0.01), device=device), 6,
+        torch.Generator().manual_seed(0), 8, **_SMALL_FIT)
+
+
 def test_fit_on_card_matches_cpu(cuda):
     # The same float64 fit from the same initial states (a CPU
     # generator draws them on both devices).  Planted archetypes keep
     # the fit well conditioned, so rounding differences between the
     # devices decay instead of growing (on Gaussian data they reach
     # 1e-6 in the cost by the iteration cap).
-    X = torch.as_tensor(_planted(0, 300, 40, 6, 0.01))
-    # backend='pallas' on both devices: 'auto' resolves to the row
-    # solver on the CPU, which stops on another rule.
-    kw = dict(init='random', tolerance=1e-6, max_iterations=200,
-              stopping_criterion='rel_delta_f',
-              dictionary_solver_kwargs={'max_iterations': 1},
-              weights_solver_kwargs={'max_iterations': 25,
-                                     'backend': 'pallas'},
-              restart_chunk=4, compact_iterations=32)
-    res = {dev: aa_fit_restarts(X.to(dev), 6,
-                                torch.Generator().manual_seed(0), 8, **kw)
-           for dev in (cuda, "cpu")}
+    res = {dev: _small_fit(dev) for dev in (cuda, "cpu")}
     np.testing.assert_allclose(res[cuda]["costs"], res["cpu"]["costs"],
                                rtol=1e-6)
     np.testing.assert_array_equal(res[cuda]["n_iters"],
                                   res["cpu"]["n_iters"])
+
+
+def test_small_fit_is_the_same_bits_every_run(cuda):
+    """The card-against-CPU fit gives the same bits run after run on
+    each device, and on the CPU whatever its thread count: equal
+    ``n_iters`` on the two devices is then a property of the code, not
+    of a run."""
+    threads = torch.get_num_threads()
+    runs = {}
+    try:
+        for name, device, n_threads in (("card", cuda, threads),
+                                        ("card again", cuda, threads),
+                                        ("cpu", "cpu", threads),
+                                        ("cpu, 1 thread", "cpu", 1),
+                                        ("cpu, 4 threads", "cpu", 4)):
+            torch.set_num_threads(n_threads)
+            runs[name] = _small_fit(device)
+    finally:
+        torch.set_num_threads(threads)
+    for a, b in (("card", "card again"), ("cpu", "cpu, 1 thread"),
+                 ("cpu", "cpu, 4 threads")):
+        np.testing.assert_array_equal(runs[a]["costs"], runs[b]["costs"])
+        np.testing.assert_array_equal(runs[a]["n_iters"], runs[b]["n_iters"])
+        assert torch.equal(runs[a]["weights"], runs[b]["weights"])
 
 
 def _unpacked_both(args, **kw):
@@ -372,3 +406,83 @@ def test_every_wrapper_counts_its_own_launches(cuda):
     torch.cuda.synchronize()
     after = [getattr(simplex_qp, name) for name in names]
     assert [a - b for a, b in zip(after, before)] == [0, 1, 1, 2]
+
+
+def test_gpnh_fit_with_k2_matches_the_plain_version_on_the_cpu(cuda):
+    """The same float64 GPNH fit from the same state: K2 on the card, its
+    plain version on the CPU."""
+    X = _planted(0, 300, 20, 4, 0.02)
+    rng = np.random.RandomState(1)
+    Z = rng.uniform(size=(300, 4))
+    Z /= Z.sum(axis=1, keepdims=True)
+    W = rng.standard_normal((20, 4))
+    fit = dict(init='custom', lambda_W=3e-5, tolerance=1e-5,
+               stopping_criterion='rel_delta_f', max_iterations=200,
+               weights_solver_kwargs={'backend': 'pallas',
+                                      'max_iterations': 200})
+    models = {}
+    for device in ("cuda", "cpu"):
+        before = simplex_qp.PACKED_LAUNCHES
+        models[device] = GPNHConvexCoding(4, **fit).fit(
+            torch.as_tensor(X, device=device),
+            weights=torch.as_tensor(Z, device=device),
+            dictionary=torch.as_tensor(W, device=device))
+        launched = simplex_qp.PACKED_LAUNCHES - before
+        assert launched == (models[device].n_iter if device == "cuda"
+                            else 0)
+    card, cpu = models["cuda"], models["cpu"]
+    assert card.n_iter == cpu.n_iter and 5 < card.n_iter < 200
+    assert card.cost == pytest.approx(cpu.cost, rel=1e-8)
+    np.testing.assert_allclose(card.weights.cpu().numpy(),
+                               cpu.weights.numpy(), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(card.dictionary.cpu().numpy(),
+                               cpu.dictionary.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("use_gram", [True, False])
+def test_pca_on_the_card_matches_the_cpu(cuda, use_gram):
+    X = _planted(2, 120, 300, 5, 0.3)
+    fits = {}
+    for device in ("cuda", "cpu"):
+        pca = PCA(6, use_gram=use_gram, device=device)
+        fits[device] = (pca, pca.fit_transform(X).cpu().numpy())
+    (card, s_card), (cpu, s_cpu) = fits["cuda"], fits["cpu"]
+    assert card.components_.device.type == "cuda"
+    c_card, c_cpu = card.components_.cpu().numpy(), cpu.components_.numpy()
+    sign = np.where(np.sum(c_card * c_cpu, axis=1) < 0, -1.0, 1.0)
+    np.testing.assert_allclose(c_card * sign[:, None], c_cpu, rtol=0,
+                               atol=1e-10)
+    np.testing.assert_allclose(s_card * sign, s_cpu, rtol=0,
+                               atol=1e-10 * np.abs(s_cpu).max())
+    np.testing.assert_allclose(card.explained_variance_,
+                               cpu.explained_variance_, rtol=1e-10)
+
+
+def _schedulers_agree(fit_restarts, X, k, **kw):
+    """The default ``compact_iterations=None`` (rounds of 32) and rounds
+    of 8 from one seed, float64 on the card: the same trajectory for
+    every restart, on K1."""
+    before = simplex_qp.LAUNCHES
+    one = fit_restarts(X, k, 0, 12, restart_chunk=5, **kw)
+    comp = fit_restarts(X, k, 0, 12, restart_chunk=5, compact_iterations=8,
+                        **kw)
+    assert simplex_qp.LAUNCHES > before
+    np.testing.assert_allclose(one['costs'], comp['costs'], rtol=1e-8)
+    np.testing.assert_array_equal(one['n_iters'], comp['n_iters'])
+    assert one['best_index'] == comp['best_index']
+    assert one['n_iters'].max() > 8
+
+
+def test_gpnh_one_shot_and_compaction_agree_on_the_card(cuda):
+    X = torch.as_tensor(_planted(3, 400, 30, 4, 0.02), device=cuda)
+    _schedulers_agree(gpnh_fit_restarts, X, 4, lambda_W=1e-3,
+                      tolerance=1e-6, stopping_criterion='rel_delta_f',
+                      max_iterations=80)
+
+
+def test_aa_one_shot_and_compaction_agree_on_the_card(cuda):
+    X = torch.as_tensor(_planted(4, 400, 30, 5, 0.02), device=cuda)
+    _schedulers_agree(aa_fit_restarts, X, 5, init='random', tolerance=1e-6,
+                      stopping_criterion='rel_delta_f', max_iterations=80,
+                      dictionary_solver_kwargs={'max_iterations': 1},
+                      weights_solver_kwargs={'max_iterations': 25})

@@ -14,8 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from convex_dim_red_tpu_torch import ArchetypalAnalysis, KernelAA
-from convex_dim_red_tpu_torch import aa_fit_restarts
+from convex_dim_red_tpu_torch import (PCA, ArchetypalAnalysis,
+                                      GPNHConvexCoding, KernelAA)
+from convex_dim_red_tpu_torch import aa_fit_restarts, gpnh_fit_restarts
 from convex_dim_red_tpu_torch.ops import simplex_qp
 from convex_dim_red_tpu_torch.utils.validation import as_input
 
@@ -27,6 +28,8 @@ RESTARTS = dict(init='random', max_iterations=20,
                 weights_solver_kwargs={'max_iterations': 10},
                 compact_iterations=8)
 ESTIMATOR = dict(init='furthest_sum', random_state=0, max_iterations=20)
+GPNH = dict(lambda_W=1e-3, max_iterations=10,
+            weights_solver_kwargs={'max_iterations': 10})
 
 
 @pytest.fixture
@@ -48,8 +51,12 @@ def _fitted_on_cpu():
     lambda X: ArchetypalAnalysis(K, **ESTIMATOR).fit_transform(X),
     lambda X: KernelAA(K, **ESTIMATOR).fit(X @ X.T),
     lambda X: _fitted_on_cpu().transform(X),
+    lambda X: gpnh_fit_restarts(X, K, 0, 2, **GPNH),
+    lambda X: GPNHConvexCoding(K, random_state=0, **GPNH).fit(X),
+    lambda X: PCA(K).fit(X),
 ], ids=["aa_fit_restarts", "fit", "fit_transform", "KernelAA.fit",
-        "transform"])
+        "transform", "gpnh_fit_restarts", "GPNHConvexCoding.fit",
+        "PCA.fit"])
 def test_numpy_without_device_needs_the_card(no_cuda, call):
     with pytest.raises(RuntimeError, match=re.escape("device='cpu'")):
         call(_data())
@@ -93,6 +100,24 @@ def test_cpu_tensor_stays_on_the_cpu_without_device(no_cuda):
     assert torch.equal(recon, model.inverse_transform(W))
     kernel = KernelAA(K, **ESTIMATOR).fit(X @ X.T)
     assert kernel.weights.device.type == "cpu"
+
+
+def test_gpnh_and_pca_with_device_cpu_match_the_cpu_tensor_fit(no_cuda):
+    X = _data(5)
+    want = gpnh_fit_restarts(torch.as_tensor(X), K, 0, 2, **GPNH)
+    got = gpnh_fit_restarts(X, K, 0, 2, device='cpu', **GPNH)
+    assert got['weights'].device.type == "cpu"
+    np.testing.assert_array_equal(got['costs'], want['costs'])
+    model = GPNHConvexCoding(K, random_state=0, device='cpu', **GPNH).fit(X)
+    same = GPNHConvexCoding(K, random_state=0, **GPNH).fit(
+        torch.as_tensor(X))
+    assert model.weights.device.type == "cpu" and model.cost == same.cost
+    assert model.transform(X)[1] == same.transform(torch.as_tensor(X))[1]
+    pca = PCA(K, device='cpu')
+    scores = pca.fit_transform(X)
+    assert scores.device.type == "cpu"
+    assert torch.equal(scores, PCA(K).fit_transform(torch.as_tensor(X)))
+    assert torch.equal(pca.transform(X), pca.transform(torch.as_tensor(X)))
 
 
 @pytest.mark.parametrize("data,dtype", [

@@ -1,8 +1,9 @@
 """The port never imports JAX.
 
 A fresh interpreter with ``sys.modules['jax'] = None`` (any ``import
-jax`` then raises) imports ``convex_dim_red_tpu_torch`` and runs a tiny
-CPU fit through the public entry point, as on a machine with no JAX.
+jax`` then raises) imports ``convex_dim_red_tpu_torch`` and runs tiny
+CPU fits through the public entry points (AA, PCA and GPNH), as on a
+machine with no JAX.
 """
 
 import os
@@ -31,6 +32,16 @@ _SCRIPT = textwrap.dedent("""
     model = cdr.ArchetypalAnalysis(2, random_state=0, max_iterations=10)
     model.fit(X)
     weights, cost = model.transform(X)
+    assert weights.shape == (20, 2) and np.isfinite(cost)
+    pcs = cdr.PCA(3).fit_transform(X)
+    assert pcs.shape == (20, 3)
+    res = cdr.gpnh_fit_restarts(pcs, 2, 0, 3, lambda_W=1e-3,
+                                max_iterations=10,
+                                weights_solver_kwargs={'max_iterations': 5})
+    assert res['dictionary'].shape == (3, 2) and np.isfinite(res['cost'])
+    gpnh = cdr.GPNHConvexCoding(2, lambda_W=1e-3, random_state=0,
+                                max_iterations=10).fit(pcs)
+    weights, cost = gpnh.transform(pcs)
     assert weights.shape == (20, 2) and np.isfinite(cost)
     # The blocked names stay None; the JAX package is never imported.
     loaded = [m for m, mod in sys.modules.items() if mod is not None

@@ -6,7 +6,10 @@ Both start from the same restart states: the JAX package's own
 would resolve its weights QP to the XLA row solver, which stops on
 another rule, so ``quad_simplex_spg_batch_grouped`` in the JAX restarts
 module is patched to run the Pallas kernel in interpret mode: both fits
-then run the same grouped QP kernel (its plain version in the port).
+then run the same grouped QP kernel (its plain version in the port),
+under convergence compaction and under the JAX package's one-shot runner
+(``grouped=True``), which the port's default ``compact_iterations=None``
+stands for.
 
 Tolerances: per-restart costs to rtol 1e-8 and the winner's weights to
 1e-6.  The QP kernels agree to about 1e-8 in x at convergence (see
@@ -69,6 +72,10 @@ def _grouped_interpret(As, Bs, X0s, backend='xla', mask=None, **kw):
         **_pallas_qp_kwargs(kw))
 
 
+_RUNNERS = (jrestarts._make_aa_grouped_round_run,
+            jrestarts._make_aa_grouped_run)
+
+
 @pytest.fixture(scope="module")
 def jax_pallas_interpret():
     """Route the JAX restarts' weights QP to the Pallas kernel in
@@ -78,9 +85,22 @@ def jax_pallas_interpret():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jrestarts, 'quad_simplex_spg_batch_grouped',
                    _grouped_interpret)
-        jrestarts._make_aa_grouped_round_run.cache_clear()
+        for runner in _RUNNERS:
+            runner.cache_clear()
         yield
-        jrestarts._make_aa_grouped_round_run.cache_clear()
+        for runner in _RUNNERS:
+            runner.cache_clear()
+
+
+def _statics(max_iterations):
+    return dict(
+        max_iterations=max_iterations,
+        criterion=FIT['stopping_criterion'], do_scale=False,
+        has_data=True,
+        dict_cfg=tcommon.make_config(tcommon.SPGSolverConfig, DICT_KW),
+        weights_cfg=tcommon.make_config(tcommon.QPSolverConfig,
+                                        WEIGHTS_KW),
+        scale_cfg=tcommon.SPGSolverConfig())
 
 
 def _jax_init_states(key, delta):
@@ -108,21 +128,19 @@ def test_compacted_fit_matches_jax(jax_pallas_interpret, max_iterations):
 
     states = states_from_numpy(*_jax_init_states(key, 0.0),
                                device='cpu', dtype=torch.float64)
-    statics = dict(
-        max_iterations=max_iterations,
-        criterion=FIT['stopping_criterion'], do_scale=False,
-        has_data=True,
-        dict_cfg=tcommon.make_config(tcommon.SPGSolverConfig, DICT_KW),
-        weights_cfg=tcommon.make_config(tcommon.QPSolverConfig,
-                                        WEIGHTS_KW),
-        scale_cfg=tcommon.SPGSolverConfig())
     before = simplex_qp.LAUNCHES
     best, costs, n_iters = trestarts._compacted_aa_best(
         torch.as_tensor(X), states, 0.0, FIT['tolerance'],
-        statics=statics, grouped_backend='pallas', restart_chunk=4,
-        round_iterations=20)
+        statics=_statics(max_iterations), grouped_backend='pallas',
+        restart_chunk=4, round_iterations=20)
     assert simplex_qp.LAUNCHES == before  # CPU: the plain version
+    _assert_matches(best, costs, n_iters, want, max_iterations)
 
+
+def _assert_matches(best, costs, n_iters, want, max_iterations):
+    """The port's fit against the JAX one, at the module's tolerances:
+    at 40 iterations every restart converges after 20, at 20 every one
+    stops at the cap."""
     np.testing.assert_allclose(costs, want['costs'], rtol=1e-8)
     np.testing.assert_array_equal(n_iters, want['n_iters'])
     if max_iterations == 40:
@@ -142,6 +160,51 @@ def test_compacted_fit_matches_jax(jax_pallas_interpret, max_iterations):
     # test_grouped_iterate_matches_jax); the fit contracts it away.
     np.testing.assert_allclose(trace[:best_n_iter], want['cost_deltas'],
                                rtol=0, atol=1e-7)
+
+
+@pytest.mark.parametrize("max_iterations", [40, 20])
+def test_one_shot_fit_matches_jax(jax_pallas_interpret, max_iterations,
+                                  monkeypatch):
+    """The default ``compact_iterations=None`` through the public entry
+    point against the JAX one-shot runner (chunks of 4 restarts, each
+    run until all of its restarts are done), the port's restart states
+    being JAX's."""
+    X = _data()
+    key = jax.random.PRNGKey(0)
+    fit = dict(FIT, max_iterations=max_iterations)
+    kw = dict(init='random', dictionary_solver_kwargs=DICT_KW,
+              weights_solver_kwargs=WEIGHTS_KW, restart_chunk=4, **fit)
+    want = jrestarts.aa_fit_restarts(X, K, key, N_INIT, grouped=True, **kw)
+
+    states = states_from_numpy(*_jax_init_states(key, 0.0),
+                               device='cpu', dtype=torch.float64)
+    monkeypatch.setattr(trestarts, '_init_aa_state',
+                        lambda *args, **kwargs: states)
+    got = trestarts.aa_fit_restarts(torch.as_tensor(X), K, 0, N_INIT, **kw)
+    best = (got['weights'], got['dictionary'], got['alpha'],
+            got['cost_deltas'], got['cost'], got['n_iter'])
+    _assert_matches(best, got['costs'], got['n_iters'], want,
+                    max_iterations)
+
+
+@pytest.mark.parametrize("restart_chunk", [None, 4])
+def test_one_shot_and_compaction_agree(restart_chunk):
+    """The default (rounds of 32) and rounds of 7 from the same seed,
+    through the public entry point: the same trajectory for every
+    restart."""
+    X = torch.as_tensor(_data(4))
+    kw = dict(init='random', dictionary_solver_kwargs=DICT_KW,
+              weights_solver_kwargs=WEIGHTS_KW, restart_chunk=restart_chunk,
+              **dict(FIT, max_iterations=60))
+    one = trestarts.aa_fit_restarts(X, K, 3, N_INIT, **kw)
+    comp = trestarts.aa_fit_restarts(X, K, 3, N_INIT, compact_iterations=7,
+                                     **kw)
+    np.testing.assert_allclose(one['costs'], comp['costs'], rtol=1e-12)
+    np.testing.assert_array_equal(one['n_iters'], comp['n_iters'])
+    assert 7 < one['n_iters'].max() and one['n_iters'].min() < 60
+    assert one['best_index'] == comp['best_index']
+    np.testing.assert_allclose(one['cost_deltas'], comp['cost_deltas'],
+                               atol=1e-12)
 
 
 @pytest.mark.parametrize("has_data,delta", [
@@ -230,7 +293,7 @@ def test_scale_factors_fit_keeps_alpha_in_its_box():
 
 @pytest.mark.parametrize("bad", [
     dict(mesh=object()), dict(screen_iterations=10),
-    dict(pad_components_to=4), dict(compact_iterations=None),
+    dict(pad_components_to=4), dict(grouped=False),
     dict(init='custom'), dict(stopping_criterion='delta_x'),
     dict(n_init=0),
     dict(weights_solver_kwargs={'max_iteration': 5})])
@@ -241,7 +304,7 @@ def test_rejects_what_is_not_ported(bad):
         trestarts.aa_fit_restarts(torch.as_tensor(_data()), K, 0, **kw)
 
 
-def test_default_init_is_not_ported_yet():
+def test_default_init_is_furthest_sum():
     # FurthestSum is ported now and is the default init, as in JAX: each
     # restart's dictionary is one-hot on the samples that the device
     # FurthestSum picks from its own start index.
@@ -261,7 +324,7 @@ def test_default_init_is_not_ported_yet():
     assert torch.equal(C.amax(dim=2), torch.ones(3, K, dtype=X.dtype))
 
 
-def test_xla_weights_backend_is_not_ported_yet():
+def test_xla_weights_backend_runs_the_row_solver():
     # The row solver is ported now: backend='xla' runs it, and 'auto'
     # resolves to it on the CPU (the JAX rule), with the same fit.
     kw = dict(init='random', dictionary_solver_kwargs=DICT_KW,
