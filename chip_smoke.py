@@ -81,11 +81,36 @@ the run with a non-zero exit and no result line:
     (chunks of 25), once: phase 7's schedule through the default
     argument, the audit held to 3809.80 and per-restart costs to phase
     7's run.
+14. Screened AA, best of 100 (bench.py:346-360 on phase 7's data:
+    screen 50 iterations, keep 0.25, margin 2.0, chunks of 25), once
+    to warm up and once timed: the screen diagnostics, the launches of
+    each phase, the float64 audit held to 3809.80 within 0.1%.
+15. ``kernel_aa_fit_restarts``, best of 100, on phase 7's Gram with
+    phase 7's settings, warm-up and timed: no ``archetypes``, the
+    dictionary is C, Z and alpha C re-costed against X in float64 and
+    held to 3809.80 within 0.1%.
+16. Padded AA at config 5's shape (benchmarks/run_all.py:139-154:
+    900 x 4096, best of 50, chunks of 10): k = 5 padded to 8 against
+    the same fit unpadded, both walls; the padded weight columns
+    exactly 0 on the card; then in float64 on K1 a fit from states at
+    k = 5 and the same states padded to 8: costs within 1e-10, equal
+    iteration counts.
+17. Config 5's AA sweep, k = 2..20 step 3, bucketed by 8: per k the
+    wall, launches and the winner's float64 audit (1e-4), costs falling
+    with k, padded columns exactly 0; K1 against its plain version and
+    its times and bound on k = 20's operands (10, 900, 24), masked.
+18. Config 4 on phase 10's PCs: GPNH best of 100 screened (50
+    iterations) and padded to 8, audited against the JAX package's
+    best of 100 within 1e-3 (the padded dictionary's columns checked
+    after every solve), then a GPNH sweep k = 2..6 of 16 restarts,
+    bucketed by 4, each k's audit within 1e-4.
 
 Each path runs with every launch count set to 0 just before it and read
-just after.  The last lines of standard output are the card's name and
-power limit, a JSON object with every kernel's launches (in all and by
-path), error, times and bound, and the JSON result line.
+just after; phases 14-18 also check the K1 count against the one their
+restart schedule implies (the scheduler's calls are recorded).  The
+last lines of standard output are the card's name and power limit, a
+JSON object with every kernel's launches (in all and by path), error,
+times and bound, and the JSON result line.
 """
 
 import json
@@ -1270,6 +1295,481 @@ def phase_aa_one_shot(X_host, compacted, compacted_wall, card):
     return {"AA best of 100, one-shot": launches}
 
 
+def recording_schedules(run, k_active=None):
+    """Run ``run()`` with the restart scheduler
+    (``parallel/restarts.py:_compacted_best``) recording each of its
+    calls: ``(n_iters, chunk, round, max_iterations)``, whose K1 launches
+    ``compacted_launches`` counts.  With ``k_active``, every call's
+    final weights must have exactly-zero columns from ``k_active`` on
+    (a padded fit).  Returns ``(run's result, calls)``."""
+    from convex_dim_red_tpu_torch.parallel import restarts
+    real, calls, padded = restarts._compacted_best, [], []
+
+    def recording(R, states_all, **kw):
+        out = real(R, states_all, **kw)
+        calls.append((out[2].copy(), min(int(kw["restart_chunk"] or R), R),
+                      kw["round_iterations"], kw["max_iterations"]))
+        tail = out[0][0][..., k_active:] if k_active is not None else None
+        if tail is not None and tail.numel():
+            padded.append(tail.abs().max())
+        return out
+
+    restarts._compacted_best = recording
+    try:
+        result = run()
+    finally:
+        restarts._compacted_best = real
+    if padded:
+        largest = float(torch_max(padded))
+        check(largest == 0.0, "padded weight columns reach %.3e" % largest)
+    return result, calls
+
+
+def torch_max(values):
+    import torch
+    return torch.stack(values).max()
+
+
+def scheduled_launches(calls):
+    """K1 launches that the recorded scheduler calls imply."""
+    return sum(compacted_launches(*call) for call in calls)
+
+
+def timed(run, warm=True):
+    """``run()`` once to warm up (with ``warm``), then once more with
+    the launch counts reset just before and the scheduler recorded:
+    ``(result, wall seconds, launches, scheduler calls, first wall)``."""
+    import torch
+    first = None
+    if warm:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    res, calls = recording_schedules(run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, wall, read_launches(), calls, first
+
+
+def check_k1_only(name, launches, calls):
+    used = scheduled_launches(calls)
+    check(launches == dict(K1=used, K2=0, K3=0, K4=0),
+          "%s: launches %s, expected %d of K1 from the schedule"
+          % (name, launches, used))
+    return used
+
+
+def phase_screened_aa(X_host, card):
+    """bench.py:346-360 on phase 7's data: the best of 100 screened
+    (50 iterations, the best quarter plus a margin of 2.0 resume),
+    chunks of 25; audited in float64 against phase 7's limit."""
+    import torch
+    from convex_dim_red_tpu_torch import aa_fit_restarts
+    X = torch.as_tensor(X_host, device=DEVICE)
+    kw = dict(fit_kwargs(), compact_iterations=None, screen_iterations=50,
+              screen_margin=2.0)
+
+    def run():
+        return aa_fit_restarts(X, K, 0, N_INIT, **kw)
+
+    res, wall, launches, calls, first = timed(run)
+    used = check_k1_only("screened AA", launches, calls)
+    screen = res['screen']
+    check(len(calls) == 2 and screen['n_screened'] == N_INIT
+          and len(calls[1][0]) == screen['n_kept'],
+          "screened AA: scheduler calls %s, screen %s"
+          % ([len(c[0]) for c in calls], screen))
+    phase_launches = [compacted_launches(*c) for c in calls]
+    exact = compacted_launches(calls[1][0], screen['n_kept'], *calls[1][2:])
+    check_simplex_rows("screened AA Z", res['weights'])
+    check_simplex_rows("screened AA C", res['dictionary'])
+    audit = audit_cost_f64(res, X_host)
+    rel = abs(audit / REFERENCE_AUDITED_COST - 1.0)
+    print("  AA best of 100, screened (50 iterations, keep 0.25, margin "
+          "2.0, chunks of 25): wall %.3f s timed (%.3f s first run), %d K1 "
+          "launches (screen %d, resume %d; the resume's %d survivors in "
+          "chunks of %d, where one chunk of all of them would launch %d), "
+          "screen %s, n_iters mean %.2f, winner n_iter %d (resume), device "
+          "cost %.4f, float64 audit %.4f (rel diff %.2e from %.2f); the JAX "
+          "package on a TPU v5e: n_kept 26, audit 3810.04 (BENCH_r05.json), "
+          "on %s"
+          % (wall, first, used, phase_launches[0], phase_launches[1],
+             screen['n_kept'], RESTART_CHUNK, exact, json.dumps(screen),
+             float(np.mean(res['n_iters'])), res['n_iter'], res['cost'],
+             audit, rel, REFERENCE_AUDITED_COST, card))
+    check(rel <= AUDIT_RTOL, "screened AA: audited cost %.4f is %.2e from "
+          "%.2f" % (audit, rel, REFERENCE_AUDITED_COST))
+    return {"AA best of 100, screened": launches}
+
+
+def phase_kernel_aa(X_host, card):
+    """``kernel_aa_fit_restarts`` best of 100 on phase 7's Gram, with
+    phase 7's fit settings: no archetypes, the dictionary is C, and Z
+    and alpha C re-costed against X in float64."""
+    import torch
+    from convex_dim_red_tpu_torch import kernel_aa_fit_restarts
+    X = torch.as_tensor(X_host, device=DEVICE)
+    gram = X @ X.T
+
+    def run():
+        return kernel_aa_fit_restarts(gram, K, 0, N_INIT, **fit_kwargs())
+
+    res, wall, launches, calls, first = timed(run)
+    used = check_k1_only("kernel AA", launches, calls)
+    check('archetypes' not in res, "kernel AA returned archetypes")
+    C = res['dictionary']
+    check(C.shape == (K, N_SAMPLES), "kernel AA dictionary %s"
+          % (tuple(C.shape),))
+    check_simplex_rows("kernel AA C (the dictionary)", C)
+    check_simplex_rows("kernel AA Z", res['weights'])
+    audit = audit_cost_f64(dict(weights=res['weights'],
+                                dictionary=res['alpha'][:, None] * C),
+                           X_host)
+    rel = abs(audit / REFERENCE_AUDITED_COST - 1.0)
+    print("  kernel AA best of 100 on the %dx%d Gram (rounds of %d, chunks "
+          "of %d): wall %.3f s timed (%.3f s first run), %d K1 launches, "
+          "n_iters mean %.2f, device cost (trace form) %.4f, float64 audit "
+          "of Z and alpha C against X %.4f (rel diff %.2e from %.2f), on %s"
+          % (N_SAMPLES, N_SAMPLES, COMPACT_ITERS, RESTART_CHUNK, wall, first,
+             used, float(np.mean(res['n_iters'])), res['cost'], audit, rel,
+             REFERENCE_AUDITED_COST, card))
+    check(rel <= AUDIT_RTOL, "kernel AA: audited cost %.4f is %.2e from "
+          "%.2f" % (audit, rel, REFERENCE_AUDITED_COST))
+    return {"kernel AA best of 100, compaction": launches}
+
+
+#: Config 5 (benchmarks/run_all.py:139-154): the model-selection sweep's
+#: data, component counts and fit settings.
+SWEEP_SAMPLES, SWEEP_FEATURES = 900, 4096
+SWEEP_KS = tuple(range(2, 21, 3))
+SWEEP_FIT = dict(n_init=50, tolerance=1e-5, stopping_criterion='rel_delta_f',
+                 max_iterations=200, init='random')
+SWEEP_BUCKET = 8
+#: The K1 call of the sweep's k = 20 fit whose operands give its warm
+#: time: the first of the second round (5 chunks x 32 iterations).
+WARM_CALL = 160
+
+
+def phase_padded_aa(card):
+    """Config 5's shape: k = 5 padded to 8 (50 restarts, chunks of 10),
+    against the same fit unpadded; then the padded fit from an unpadded
+    fit's states, float64 on the card."""
+    import torch
+    from convex_dim_red_tpu_torch import aa_fit_restarts
+    from convex_dim_red_tpu_torch.parallel import restarts
+    X = torch.as_tensor(make_data(SWEEP_SAMPLES, SWEEP_FEATURES),
+                        device=DEVICE)
+    kw = dict(SWEEP_FIT, restart_chunk=10)
+    n_init = kw.pop('n_init')
+    walls, out, paths = {}, {}, {}
+    for label, pad in (("padded to 8", SWEEP_BUCKET), ("unpadded", None)):
+        reset_launches()
+        t0 = time.perf_counter()
+        res, calls = recording_schedules(
+            lambda: aa_fit_restarts(X, 5, 0, n_init, pad_components_to=pad,
+                                    **kw),
+            k_active=5 if pad else None)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        launches = read_launches()
+        used = check_k1_only("AA k=5 " + label, launches, calls)
+        check(res['weights'].shape == (SWEEP_SAMPLES, 5)
+              and res['archetypes'].shape == (5, SWEEP_FEATURES),
+              "AA k=5 %s: shapes %s" % (label, tuple(res['weights'].shape)))
+        check_simplex_rows("AA k=5 %s Z" % label, res['weights'])
+        print("  AA k=5 %s, best of 50: wall %.3f s (first call), %d K1 "
+              "launches, n_iters mean %.2f, cost %.4f, on %s"
+              % (label, walls[label], used, float(np.mean(res['n_iters'])),
+                 res['cost'], card))
+        out[label] = res
+        paths["AA k=5 best of 50, %s" % label] = launches
+
+    # The same active start, unpadded and padded (float64, small): the
+    # same per-restart costs and iteration counts.
+    Xs = torch.as_tensor(planted(1, 300, 40, 5, 0.1), device=DEVICE)
+    gen = torch.Generator().manual_seed(0)
+    states = restarts._init_aa_state(
+        gen, 8, 0.0, n_samples=300, n_components=5, init='random',
+        diss=None, n_extra_steps=10, do_scale=False, dtype=torch.float64,
+        device=DEVICE)
+    Z, C, alpha = states
+    Z_pad = torch.zeros((8, 300, 8), dtype=torch.float64, device=DEVICE)
+    Z_pad[..., :5] = Z
+    C_pad = torch.full((8, 8, 300), 1.0 / 300, dtype=torch.float64,
+                       device=DEVICE)
+    C_pad[:, :5] = C
+    a_pad = torch.ones((8, 8), dtype=torch.float64, device=DEVICE)
+    from convex_dim_red_tpu_torch.models import _common
+    statics = dict(
+        max_iterations=200, criterion='rel_delta_f', do_scale=False,
+        has_data=True,
+        dict_cfg=_common.make_config(_common.SPGSolverConfig,
+                                     {'max_iterations': 1}),
+        weights_cfg=_common.make_config(_common.QPSolverConfig,
+                                        {'max_iterations': 25}),
+        scale_cfg=_common.SPGSolverConfig())
+    fits = []
+    reset_launches()
+    for st, mask in ((states, None),
+                     ((Z_pad, C_pad, a_pad),
+                      restarts._padded_components(5, 8)[1])):
+        best, costs, n_iters = restarts._compacted_aa_best(
+            Xs, st, 0.0, 1e-6, statics=statics, grouped_backend='pallas',
+            restart_chunk=4, round_iterations=32, component_mask=mask)
+        fits.append((best, costs, n_iters))
+    torch.cuda.synchronize()
+    check(read_launches()["K1"] > 0, "float64 padded check: no K1 launch")
+    (b_r, c_r, i_r), (b_p, c_p, i_p) = fits
+    rel = float(np.max(np.abs(c_p / c_r - 1.0)))
+    zero = bool((b_p[0][:, 5:] == 0).all())
+    print("  float64 300x40, k=5 and the same states padded to 8, 8 "
+          "restarts on K1: per-restart costs max rel diff %.3e, n_iters %s "
+          "and %s, padded weights exactly 0: %s"
+          % (rel, i_r.tolist(), i_p.tolist(), zero))
+    check(rel <= 1e-10 and np.array_equal(i_r, i_p) and zero,
+          "padded float64: costs %.3e apart, n_iters %s vs %s"
+          % (rel, i_r.tolist(), i_p.tolist()))
+    print("  padded vs unpadded wall at config 5's shape: %.3f s vs %.3f s "
+          "(%.2fx), on %s" % (walls["padded to 8"], walls["unpadded"],
+                              walls["padded to 8"] / walls["unpadded"], card))
+    return paths, walls
+
+
+def phase_aa_sweep(card):
+    """Config 5 (benchmarks/run_all.py:139-154): the AA sweep k = 2..20
+    step 3, best of 50 each, bucketed by 8; K1's operands at k = 20 (k_pad
+    24) captured for its time and bound."""
+    import torch
+    from convex_dim_red_tpu_torch.ops import simplex_qp as sq
+    from convex_dim_red_tpu_torch.parallel import sweep
+    X_host = make_data(SWEEP_SAMPLES, SWEEP_FEATURES)
+    X = torch.as_tensor(X_host, device=DEVICE)
+    real_fit = sweep.aa_fit_restarts
+    per_k, captured, box = {}, {}, []  # launches by k, K1's operands
+
+    def fit(data, k, *args, **kw):
+        before = read_launches()
+        t0 = time.perf_counter()
+
+        def call():
+            box.append(real_fit(data, k, *args, **kw))
+            return box[-1]
+
+        run = call
+        if k == SWEEP_KS[-1]:
+            def run():
+                captured.update(capture_k1_operands(call, (0, WARM_CALL)))
+                return box[-1]
+
+        res, calls = recording_schedules(run, k_active=k)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = read_launches()
+        launches = {key: after[key] - before[key] for key in after}
+        check_k1_only("AA sweep k=%d" % k, launches, calls)
+        audit = audit_cost_f64(res, X_host)
+        rel = abs(audit / res['cost'] - 1.0)
+        print("  k=%2d (padded to %2d): %.3f s, %d K1 launches, n_iters "
+              "mean %.2f max %d, cost %.4f, float64 audit %.4f (rel diff "
+              "%.2e)" % (k, kw['pad_components_to'], wall, launches["K1"],
+                         float(np.mean(res['n_iters'])),
+                         int(np.max(res['n_iters'])), res['cost'], audit,
+                         rel), flush=True)
+        check(rel <= 1e-4, "AA sweep k=%d: audit %.4f vs device cost %.4f"
+              % (k, audit, res['cost']))
+        check(res['weights'].shape[1] == k, "AA sweep k=%d: %d columns"
+              % (k, res['weights'].shape[1]))
+        per_k[k] = launches
+        return res
+
+    sweep.aa_fit_restarts = fit
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        results = sweep.aa_model_selection_sweep(
+            X, SWEEP_KS, 0, component_bucket=SWEEP_BUCKET, **SWEEP_FIT)
+    finally:
+        sweep.aa_fit_restarts = real_fit
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches["K1"] == sum(v["K1"] for v in per_k.values()),
+          "AA sweep: launches %s" % launches)
+    costs = [results[k]['cost'] for k in SWEEP_KS]
+    print("  AA sweep k=%s, best of 50 each, bucket 8: %.3f s in all, %d K1 "
+          "launches, costs %s, rmse %s, on %s"
+          % (list(SWEEP_KS), total, launches["K1"],
+             np.round(costs, 4).tolist(),
+             [round(results[k]['rmse'], 5) for k in SWEEP_KS], card))
+    check(all(b <= a for a, b in zip(costs, costs[1:])),
+          "AA sweep: costs rise with k: %s" % costs)
+
+    # K1 at a padded sweep shape: k = 20's first launch (random weights)
+    # and the first of its second round (warm: 5 chunks of 32 launches
+    # make the first round), 10 restarts of 900 rows at k_pad 24,
+    # masked.  In float64 the kernel is held to its plain version row by
+    # row.  In float32 both lose rows: from a near-optimal start the first
+    # step projects x - 1e3 g with |g| ~ 1e3, and float32 cancels those
+    # 1e6s down to [0, 1] with errors of ~0.1 in the direction, so the
+    # line search may leave x0 for a point up to 3% worse; which rows it
+    # hits depends on rounding.  So float32 is held in total: the
+    # kernel's summed objective within 1e-4 of the float64 solve's.
+    times = {}
+    for call, (As, Bs, X0s, kw) in sorted(captured.items()):
+        projection = kw.pop("projection")
+        mask = kw.pop("mask")
+        R, n, k_pad = Bs.shape
+        check(mask is not None and int(mask.sum()) == SWEEP_KS[-1]
+              and k_pad == 24, "k=20 operands: mask %s, shape %s"
+              % (mask, tuple(Bs.shape)))
+        name = "K1 sweep (%d, %d, %d) masked, launch %d" % (R, n, k_pad, call)
+        qp = dict(projection=projection, mask=mask, **kw)
+        compare_qp(name + " f64", As.double(), Bs.double(), X0s.double(),
+                   tol_obj=1e-8, **qp)
+        f = {label: qp_objective(fn(*args, **qp), As, Bs)
+             for label, fn, args in (
+                 ("kernel", sq.quad_simplex_qp_packed_grouped,
+                  (As, Bs, X0s)),
+                 ("plain", sq.quad_simplex_qp_packed_grouped_reference,
+                  (As, Bs, X0s)),
+                 ("f64", sq.quad_simplex_qp_packed_grouped_reference,
+                  (As.double(), Bs.double(), X0s.double())))}
+        gap = np.abs(f["kernel"] - f["plain"]) / (1.0 + np.abs(f["plain"]))
+        total = {key: float(np.sum(v)) for key, v in f.items()}
+        rel = {key: total[key] / total["f64"] - 1.0
+               for key in ("kernel", "plain")}
+        print("  %s f32: rows apart by > 1e-5 %d of %d (most %.3e); summed "
+              "objective against the float64 solve: kernel %.2e, plain "
+              "%.2e" % (name, int(np.sum(gap > 1e-5)), gap.size,
+                        float(gap.max()), rel["kernel"], rel["plain"]))
+        check(abs(rel["kernel"]) <= 1e-4, "%s f32: summed objective %.2e "
+              "from the float64 solve's" % (name, rel["kernel"]))
+        times[call] = kernel_times(
+            "K1 sweep k=20 launch %d" % call,
+            sq.quad_simplex_qp_packed_grouped,
+            sq.quad_simplex_qp_packed_grouped_reference, (As, Bs, X0s),
+            projection, sq.team_width(k_pad), sq.PACKED_THREADS, lone=True,
+            mask=mask, **kw)
+        times[call]["max_abs_err_f64"] = float(
+            (sq.quad_simplex_qp_packed_grouped(As.double(), Bs.double(),
+                                               X0s.double(), **qp)
+             - sq.quad_simplex_qp_packed_grouped_reference(
+                 As.double(), Bs.double(), X0s.double(), **qp))
+            .abs().max())
+    paths = {"AA sweep k=%d, best of 50, bucket 8" % k: per_k[k]
+             for k in SWEEP_KS}
+    return paths, dict(R=R, n=n, k=k_pad, k_active=SWEEP_KS[-1],
+                       team_width=sq.team_width(k_pad), launch=WARM_CALL,
+                       **times[WARM_CALL]), total
+
+
+def phase_gpnh_screened_padded(pcs, pcs_host, card):
+    """Config 4 on phase 10's PCs: the best of 100 screened (50
+    iterations), then padded to 8, both audited against the JAX package's
+    best of 100; then a short GPNH sweep k = 2..6, bucketed by 4."""
+    import torch
+    from convex_dim_red_tpu_torch import gpnh_fit_restarts
+    from convex_dim_red_tpu_torch.parallel import restarts
+    from convex_dim_red_tpu_torch.parallel.sweep import (
+        gpnh_model_selection_sweep)
+    ref = GPNH_REFERENCE[100][0]
+    paths = {}
+    real_solve = restarts.update_gpnh_dictionary
+    before_mask = []
+
+    def recording_solve(*args, **kwargs):
+        W = real_solve(*args, **kwargs)
+        if W.shape[-1] > GPNH_K:
+            before_mask.append(W[..., GPNH_K:].abs().amax())
+        return W
+
+    for label, extra in (("screened (50 iterations)",
+                          dict(screen_iterations=50)),
+                         ("padded to 8", dict(pad_components_to=8))):
+        def run():
+            return gpnh_fit_restarts(pcs, GPNH_K, 0, 100, **extra,
+                                     **GPNH_FIT)
+
+        k_active = GPNH_K if 'pad_components_to' in extra else None
+        reset_launches()
+        restarts.update_gpnh_dictionary = recording_solve
+        t0 = time.perf_counter()
+        try:
+            res, calls = recording_schedules(run, k_active=k_active)
+        finally:
+            restarts.update_gpnh_dictionary = real_solve
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        used = check_k1_only("GPNH " + label, launches, calls)
+        check_simplex_rows("GPNH %s weights" % label, res['weights'])
+        audit = gpnh_audit(res, pcs_host)
+        rel = abs(audit / ref - 1.0)
+        note = ""
+        if k_active is not None:
+            largest = float(torch_max(before_mask))
+            check(np.isfinite(largest), "padded GPNH: the dictionary solve "
+                  "gave non-finite padded columns")
+            note = (", padded dictionary columns before the mask at most "
+                    "%.3e over %d solves (0 after it)"
+                    % (largest, len(before_mask)))
+        print("  GPNH best of 100, %s: wall %.3f s (first call), %d K1 "
+              "launches, n_iters mean %.2f, %s device cost %.4f, float64 "
+              "audit %.4f (rel diff %.2e from %.4f, limit 1e-3)%s, on %s"
+              % (label, wall, used, float(np.mean(res['n_iters'])),
+                 ("screen %s," % json.dumps(res['screen'])
+                  if 'screen' in res else ""), res['cost'], audit, rel, ref,
+                 note, card))
+        check(rel <= 1e-3, "GPNH %s: audited cost %.4f is %.2e from %.4f"
+              % (label, audit, rel, ref))
+        paths["GPNH best of 100, %s" % label] = launches
+
+    # A short sweep over the PCs with config 4's settings.
+    real_fit = restarts.gpnh_fit_restarts
+    kept = {}
+
+    def keeping(*args, **kwargs):
+        res, calls = recording_schedules(lambda: real_fit(*args, **kwargs),
+                                         k_active=args[1])
+        kept[args[1]] = (res, calls)
+        return res
+
+    from convex_dim_red_tpu_torch.parallel import sweep as sweep_module
+    sweep_module.gpnh_fit_restarts = keeping
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        results = gpnh_model_selection_sweep(
+            pcs, range(2, 7), 0, n_init=16, component_bucket=4, **GPNH_FIT)
+    finally:
+        sweep_module.gpnh_fit_restarts = real_fit
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches["K1"] == sum(scheduled_launches(c)
+                                for _, c in kept.values())
+          and launches["K2"] == launches["K3"] == launches["K4"] == 0,
+          "GPNH sweep: launches %s" % launches)
+    rows = []
+    for k in range(2, 7):
+        res, _ = kept[k]
+        audit = gpnh_audit(res, pcs_host)
+        rel = abs(audit / results[k]['cost'] - 1.0)
+        rows.append("k=%d %.4f (audit rel %.1e, %.2f s)"
+                    % (k, results[k]['cost'], rel, results[k]['elapsed']))
+        check(rel <= 1e-4, "GPNH sweep k=%d: audit %.4f vs device cost %.4f"
+              % (k, audit, results[k]['cost']))
+        check(res['dictionary'].shape[1] == k, "GPNH sweep k=%d: columns" % k)
+    print("  GPNH sweep k=2..6 on the PCs, best of 16, bucket 4: %.3f s, %d "
+          "K1 launches; %s; on %s" % (wall, launches["K1"], "; ".join(rows),
+                                       card))
+    paths["GPNH sweep k=2..6, best of 16, bucket 4"] = launches
+    return paths
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_device()
@@ -1306,6 +1806,17 @@ def main():
     paths.update(phase_gpnh_estimator(pcs, pcs_host, card))
     phase("AA main path's workload, one-shot")
     paths.update(phase_aa_one_shot(X_host, compacted, compacted_wall, card))
+    phase("screened AA, best of 100")
+    paths.update(phase_screened_aa(X_host, card))
+    phase("kernel_aa_fit_restarts, best of 100")
+    paths.update(phase_kernel_aa(X_host, card))
+    phase("padded AA at config 5's shape")
+    paths.update(phase_padded_aa(card)[0])
+    phase("AA model-selection sweep, config 5")
+    sweep_paths, kernels["K1"]["sweep_shape"], _ = phase_aa_sweep(card)
+    paths.update(sweep_paths)
+    phase("GPNH screened, padded and swept, config 4")
+    paths.update(phase_gpnh_screened_padded(pcs, pcs_host, card))
     print("all phases passed in %.1f s" % (time.perf_counter() - t_start))
     print(card)
     by_path = {key: {path: counts[key] for path, counts in paths.items()

@@ -7,12 +7,14 @@ Pallas TPU kernel with a kernel written by hand for NVIDIA Hopper
 (``csrc/``: all four simplex-QP kernels).  It covers so far
 (ROADMAP.md, queue 1): archetypal analysis (the ``ArchetypalAnalysis``
 and ``KernelAA`` estimators with ``transform``, and the best-of-N fit
-``aa_fit_restarts``), GPNH convex coding (``GPNHConvexCoding`` and
-``gpnh_fit_restarts``), ``PCA``, FurthestSum, and the SPG solvers they
-run.  The best-of-N fits run under convergence compaction, in rounds of
-32 iterations by default (``compact_iterations=None``, the JAX
-package's one-shot default, whose results they give).  It never imports
-JAX.
+``aa_fit_restarts``, and ``kernel_aa_fit_restarts`` on a kernel), GPNH
+convex coding (``GPNHConvexCoding`` and ``gpnh_fit_restarts``), the AA
+and GPNH model-selection sweeps (``parallel.sweep``), ``PCA``,
+FurthestSum, and the SPG solvers they run.  The best-of-N fits run
+under convergence compaction, in rounds of 32 iterations by default
+(``compact_iterations=None``, the JAX package's one-shot default, whose
+results they give), or screened (``screen_iterations``), at ``k`` or
+padded (``pad_components_to``).  It never imports JAX.
 """
 
 from .models.archetypal_analysis import ArchetypalAnalysis, KernelAA
@@ -30,7 +32,8 @@ from .ops.stochastic_matrices import (
     left_stochastic_matrix,
     right_stochastic_matrix,
 )
-from .parallel.restarts import aa_fit_restarts, gpnh_fit_restarts
+from .parallel.restarts import (aa_fit_restarts, gpnh_fit_restarts,
+                                kernel_aa_fit_restarts)
 from .solvers.spg import (quad_simplex_spg, quad_simplex_spg_batch,
                           quad_simplex_spg_batch_grouped, quad_spg,
                           resolve_qp_backend)
@@ -53,6 +56,7 @@ __all__ = [
     "left_stochastic_matrix",
     "right_stochastic_matrix",
     "aa_fit_restarts",
+    "kernel_aa_fit_restarts",
     "gpnh_fit_restarts",
     "quad_spg",
     "quad_simplex_spg",

@@ -190,8 +190,9 @@ def _gpnh_core(X, Z, W, lambda_W, tolerance, *, do_dict, do_weights,
     agrees with the true cost only up to the rounding of its parts) sets
     that stage's flag in ``inc_flags``; with ``require_monotonic`` a
     flag stops the loop.  ``lambda_W`` and ``tolerance`` are numbers.
-    The JAX function's ``component_mask`` (a padded-k fit) belongs to
-    the padded-k slice (ROADMAP.md queue 1, item 11).
+    The JAX function's ``component_mask`` is not taken: padded fits run
+    only in the restart runners (``parallel/restarts.py``), which carry
+    their own mask.
 
     Returns ``(Z, W, cost, n_iter, cost_trace, inc_flags, stop)``;
     ``stop`` tells a fired criterion (or watchdog) from the iteration

@@ -1,4 +1,5 @@
-"""Best-of-``n_init`` archetypal analysis and GPNH convex coding.
+"""Best-of-``n_init`` archetypal analysis, kernel AA and GPNH convex
+coding.
 
 Port of the single-device grouped paths of
 convex_dim_red_tpu/parallel/restarts.py.  The initial states of all
@@ -18,9 +19,18 @@ one-shot runner's results restart for restart, and the fit stops once
 every restart is done, as that runner's loop does.  The host reads only
 per-round scalars.
 
-Screening, padded ``k``, ``kernel_aa_fit_restarts`` and meshes are later
-slices of the port (ROADMAP.md, queue 1, items 11 and 17); the vmapped
-per-restart path (``grouped=False``) is not ported (item 18).
+Screened restarts (``screen_iterations``) run that scheduler twice
+(:func:`_screened_best`): a bounded screening pass over every restart,
+then a fresh run of the best few from their screened states.  Padded
+``k`` (``pad_components_to``) runs every restart at a padded component
+count with a mask that pins the padded weights to zero in the weights
+QP (:func:`_padded_components`), so the fit is exactly an
+``n_components`` model; the outputs are sliced back to
+``n_components``.
+
+Meshes are a later slice of the port (ROADMAP.md, queue 1, item 17);
+the vmapped per-restart path (``grouped=False``) is not ported (item
+18).
 """
 
 import numpy as np
@@ -33,7 +43,9 @@ from ..models.archetypal_analysis import (_cost_from_parts, _scalar_dtype,
 from ..models.gpnh_convex_coding import (_SCALAR_DTYPE as _GPNH_SDT,
                                          _cost_from_parts as
                                          _gpnh_cost_from_parts,
-                                         _gpnh_gram, gpnh_regularization,
+                                         _gpnh_gram, _gpnh_gram_masked,
+                                         gpnh_regularization,
+                                         gpnh_regularization_masked,
                                          update_gpnh_dictionary)
 from ..ops.furthest_sum import (dissimilarities_from_kernel,
                                 furthest_sum_device)
@@ -45,24 +57,54 @@ from ..utils.precision import apply_matmul_precision
 from ..utils.validation import as_input
 from .sharded_aa import _keep_best_loop
 
-__all__ = ["aa_fit_restarts", "gpnh_fit_restarts"]
+__all__ = ["aa_fit_restarts", "kernel_aa_fit_restarts",
+           "gpnh_fit_restarts"]
 
-#: Iterations a round under ``compact_iterations=None``: the JAX
-#: package's one-shot runner reads no scalar until every restart is
-#: done; here the host reads the round's scalars once every 32.
+#: Iterations a round under ``compact_iterations=None`` and in both
+#: phases of a screened fit: the JAX package's one-shot runner reads no
+#: scalar until every restart is done; here the host reads the round's
+#: scalars once every 32.
 _ONE_SHOT_ROUND = 32
 
 
+def _padded_components(n_components, pad_components_to):
+    """The component count of the fit and its mask, ``(k_fit, mask)``.
+
+    ``mask`` is a (k_fit,) bool tensor on the CPU, true on the first
+    ``n_components``: all true when ``pad_components_to ==
+    n_components`` (as in the JAX package, where an exact multiple of a
+    bucket shares the bucket's masked program), None when
+    ``pad_components_to`` is None or below ``n_components``.  It stays
+    on the host, where the QP kernels' wrappers read it."""
+    if pad_components_to is None or int(pad_components_to) < n_components:
+        return n_components, None
+    k_pad = int(pad_components_to)
+    return k_pad, torch.arange(k_pad) < n_components
+
+
+def _masked_uniform_weights(generator, shape, component_mask, dtype,
+                            device):
+    """Row-stochastic weights of a padded fit: uniform draws times the
+    mask, normalised per row, so the padded columns start at 0."""
+    u = torch.rand(shape, generator=generator, dtype=dtype,
+                   device=generator.device).to(device)
+    u = u * component_mask.to(device, dtype)
+    return u / u.sum(dim=-1, keepdim=True)
+
+
 def _init_aa_state(generator, n_init, delta, *, n_samples, n_components,
-                   init, diss, n_extra_steps, do_scale, dtype, device):
+                   init, diss, n_extra_steps, do_scale, dtype, device,
+                   component_mask=None):
     """Initial states of ``n_init`` restarts: row-stochastic
     ``Z (R, n, k)``, ``C (R, k, n)`` and ``alpha (R, k)`` uniform in
     ``[1 - delta, 1 + delta]`` (ones without scale factors).  With
     ``init='furthest_sum'`` each restart draws a start index and ``C``
     is one-hot on the samples that :func:`furthest_sum_device` picks
     from the dissimilarities ``diss``; with ``'random'`` ``C`` is
-    random.  Matches the JAX package's ``_init_aa_state`` in
-    distribution."""
+    random.  ``component_mask`` (a padded fit, ``k`` the padded count):
+    ``Z`` is uniform on the active columns and 0 on the padded ones, and
+    FurthestSum picks ``k`` samples, the padded count.  Matches the JAX
+    package's ``_init_aa_state`` in distribution."""
     if init == 'furthest_sum':
         starts = torch.randint(0, n_samples, (n_init,),
                                generator=generator,
@@ -74,8 +116,13 @@ def _init_aa_state(generator, n_init, delta, *, n_samples, n_components,
         C = right_stochastic_matrix(
             generator, (n_init, n_components, n_samples), dtype=dtype,
             device=device)
-    Z = right_stochastic_matrix(generator, (n_init, n_samples, n_components),
-                                dtype=dtype, device=device)
+    shape = (n_init, n_samples, n_components)
+    if component_mask is None:
+        Z = right_stochastic_matrix(generator, shape, dtype=dtype,
+                                    device=device)
+    else:
+        Z = _masked_uniform_weights(generator, shape, component_mask,
+                                    dtype, device)
     if do_scale:
         u = torch.rand((n_init, n_components), generator=generator,
                        dtype=dtype, device=generator.device).to(device)
@@ -88,7 +135,7 @@ def _init_aa_state(generator, n_init, delta, *, n_samples, n_components,
 
 def _aa_grouped_iterate(X, K, *, delta, do_scale, has_data, dict_kwargs,
                         weights_backend, weights_kwargs, scale_kwargs,
-                        trace_K):
+                        trace_K, component_mask=None):
     """Restart-batched AA alternating iterate with the weights QP
     grouped across restarts.
 
@@ -102,6 +149,9 @@ def _aa_grouped_iterate(X, K, *, delta, do_scale, has_data, dict_kwargs,
     ``has_data``: ``X`` is the data and the cost is the residual form
     ``0.5 ||Z diag(alpha) C X - X||^2 / n`` (reliable in float32);
     otherwise the cost is the trace form from ``trace_K``.
+    ``component_mask`` (a padded fit) goes only to the weights QP, which
+    pins the padded columns of ``Z`` to 0; the padded rows of ``C`` then
+    get a zero gradient and do not reach the cost.
 
     Returns ``(iterate, cost0)``: ``iterate(Zs, Cs, alphas) -> (Zs, Cs,
     alphas, costs)`` and ``cost0(Zs, Cs, alphas)``, the initial costs.
@@ -153,7 +203,8 @@ def _aa_grouped_iterate(X, K, *, delta, do_scale, has_data, dict_kwargs,
     def iterate(Zs, Cs, alphas):
         Cs, alphas, As, Bws, CKs, CKCts = pre(Zs, Cs, alphas)
         Zs = quad_simplex_spg_batch_grouped(
-            As, Bws, Zs, backend=weights_backend, **weights_kwargs)
+            As, Bws, Zs, backend=weights_backend, mask=component_mask,
+            **weights_kwargs)
         costs = cost_of(Zs, Cs, alphas, CKs, CKCts)
         return Zs, Cs, alphas, costs
 
@@ -288,7 +339,73 @@ def _best_of_compacted(states, round_call, *, max_iterations,
              int(n_iters[best])), costs, n_iters)
 
 
-def _aa_grouped_parts(X, delta, statics, grouped_backend, gram):
+def _screened_best(states, round_call, *, max_iterations,
+                   screen_iterations, restart_chunk, screen_keep,
+                   screen_margin=None):
+    """Screened keep-best: screen every restart, prune, resume the best
+    (the JAX package's ``_screened_best``, for both families).
+
+    Every restart runs at most ``screen_iterations`` iterations from
+    ``states`` (not modified).  The ``n_keep = max(1, ceil(screen_keep
+    R))`` lowest screened costs survive; the ``n_keep``-th is the cut,
+    and with ``screen_margin`` every restart whose screened cost is at
+    most the cut plus the margin survives too.  The survivors then run
+    afresh from their screened states for up to ``max_iterations``
+    iterations (not what the screen left over): a new initial cost and
+    nothing carried over, so a restart that stopped in the screen runs
+    again, as in the JAX package's resume runner.
+
+    Both phases are :func:`_compacted_best` in rounds of
+    :data:`_ONE_SHOT_ROUND` over chunks of ``restart_chunk``; a frozen
+    restart does not change, so every restart ends as it does under the
+    JAX package's screen and resume runners.
+
+    Returns ``(best, costs, n_iters, screen)``: ``best = (*state, trace,
+    cost, n_iter)`` of the winner, its trace and ``n_iter`` covering its
+    resume only; ``costs`` (a pruned restart's screened cost) and
+    ``n_iters`` (screen plus resume for a survivor) over all restarts,
+    numpy; ``screen`` the diagnostics ``n_screened``, ``n_kept``,
+    ``screen_cut`` and ``screen_margin_observed``, the best pruned
+    screened cost minus the worst kept (``inf`` when none is pruned).
+    """
+    R = states[0].shape[0]
+    screened, screen_costs, screen_iters, _, _ = _compacted_best(
+        R, tuple(s.clone() for s in states),
+        max_iterations=int(screen_iterations), restart_chunk=restart_chunk,
+        round_iterations=_ONE_SHOT_ROUND, round_call=round_call)
+
+    order = np.argsort(screen_costs)
+    n_keep = max(1, int(np.ceil(float(screen_keep) * R)))
+    cut = float(screen_costs[order[n_keep - 1]])
+    if screen_margin is not None:
+        n_keep = max(n_keep, int(np.sum(
+            screen_costs <= cut + float(screen_margin))))
+    survivors, pruned = order[:n_keep], order[n_keep:]
+    screen = {
+        'n_screened': int(R),
+        'n_kept': int(n_keep),
+        'screen_cut': cut,
+        'screen_margin_observed': (
+            float(screen_costs[pruned].min()
+                  - screen_costs[survivors].max())
+            if pruned.size else float('inf')),
+    }
+
+    idx = torch.as_tensor(survivors, device=screened[0].device)
+    best, res_costs, res_iters = _best_of_compacted(
+        tuple(s[idx] for s in screened), round_call,
+        max_iterations=int(max_iterations), restart_chunk=restart_chunk,
+        round_iterations=_ONE_SHOT_ROUND)
+
+    costs = screen_costs.copy()
+    n_iters = screen_iters.copy()
+    costs[survivors] = res_costs
+    n_iters[survivors] = screen_iters[survivors] + res_iters
+    return best, costs, n_iters, screen
+
+
+def _aa_grouped_parts(X, delta, statics, grouped_backend, gram,
+                      component_mask=None):
     """``(iterate, cost0)`` of :func:`_aa_grouped_iterate` for a fit's
     ``statics`` (``max_iterations``, ``criterion``, ``do_scale``,
     ``has_data`` and the three solver configs).  ``gram`` is ``X X'`` if
@@ -303,15 +420,17 @@ def _aa_grouped_parts(X, delta, statics, grouped_backend, gram):
         data, K, delta=delta, do_scale=statics['do_scale'],
         has_data=has_data, dict_kwargs=dict_kwargs,
         weights_backend=grouped_backend, weights_kwargs=weights_kwargs,
-        scale_kwargs=scale_kwargs, trace_K=trace_K)
+        scale_kwargs=scale_kwargs, trace_K=trace_K,
+        component_mask=component_mask)
 
 
 def _make_aa_grouped_round_run(X, gram, *, delta, tolerance, statics,
-                               grouped_backend):
+                               grouped_backend, component_mask=None):
     """One bounded compaction round of grouped AA restarts
     (:func:`_round_run`)."""
     iterate, cost0 = _aa_grouped_parts(X, delta, statics,
-                                       grouped_backend, gram)
+                                       grouped_backend, gram,
+                                       component_mask)
     return _round_run(iterate, cost0, tolerance=tolerance,
                       criterion=statics['criterion'])
 
@@ -319,7 +438,7 @@ def _make_aa_grouped_round_run(X, gram, *, delta, tolerance, statics,
 @apply_matmul_precision
 def _compacted_aa_best(X, states, delta, tolerance, *, statics,
                        grouped_backend, restart_chunk, round_iterations,
-                       gram=None):
+                       gram=None, component_mask=None):
     """Multi-restart AA with convergence compaction, from given initial
     states ``(Zs, Cs, alphas)`` (see :func:`_compacted_best`;
     ``statics`` as in :func:`_aa_grouped_parts`).  Returns ``(best,
@@ -327,20 +446,34 @@ def _compacted_aa_best(X, states, delta, tolerance, *, statics,
     best_n_iter)``."""
     run = _make_aa_grouped_round_run(X, gram, delta=delta,
                                      tolerance=tolerance, statics=statics,
-                                     grouped_backend=grouped_backend)
+                                     grouped_backend=grouped_backend,
+                                     component_mask=component_mask)
     return _best_of_compacted(
         states, run, max_iterations=int(statics['max_iterations']),
         restart_chunk=restart_chunk, round_iterations=round_iterations)
 
 
-def _reject_unported(mesh, screen_iterations, pad_components_to, grouped):
+@apply_matmul_precision
+def _screened_aa_best(X, states, delta, tolerance, *, statics,
+                      grouped_backend, restart_chunk, screen_iterations,
+                      screen_keep, screen_margin=None, gram=None,
+                      component_mask=None):
+    """Screened multi-restart AA (:func:`_screened_best`) from given
+    initial states ``(Zs, Cs, alphas)``, both phases on the round runner
+    of :func:`_compacted_aa_best`.  Returns ``(best, costs, n_iters,
+    screen)``."""
+    run = _make_aa_grouped_round_run(X, gram, delta=delta,
+                                     tolerance=tolerance, statics=statics,
+                                     grouped_backend=grouped_backend,
+                                     component_mask=component_mask)
+    return _screened_best(
+        states, run, max_iterations=int(statics['max_iterations']),
+        screen_iterations=screen_iterations, restart_chunk=restart_chunk,
+        screen_keep=screen_keep, screen_margin=screen_margin)
+
+
+def _reject_unported(mesh, grouped):
     _reject_mesh(mesh)
-    if screen_iterations is not None:
-        raise ValueError("screen_iterations is not ported yet (ROADMAP.md "
-                         "queue 1, item 11: screening)")
-    if pad_components_to is not None:
-        raise ValueError("pad_components_to is not ported yet (ROADMAP.md "
-                         "queue 1, item 11: padded-k buckets)")
     if grouped is not None and not grouped:
         raise ValueError("grouped=False selects the vmapped per-restart "
                          "path, which is not ported (ROADMAP.md queue 1, "
@@ -348,7 +481,22 @@ def _reject_unported(mesh, screen_iterations, pad_components_to, grouped):
                          "restart structure")
 
 
-def _check_fit_args(stopping_criterion, n_init):
+def _validate_compaction(compact_iterations, screen_iterations):
+    """Compaction and screening are two schedulers: an integer
+    ``compact_iterations`` with ``screen_iterations`` raises, as in the
+    JAX package.  (``compact_iterations=None``, the default, runs rounds
+    of :data:`_ONE_SHOT_ROUND` and goes with screening.)"""
+    if compact_iterations is not None and screen_iterations is not None:
+        raise ValueError("compact_iterations and screen_iterations "
+                         "are mutually exclusive (compaction is the "
+                         "exact-protocol scheduler, screening the "
+                         "pruning heuristic)")
+
+
+def _check_fit_args(stopping_criterion, n_init, mesh, grouped,
+                    compact_iterations, screen_iterations):
+    _reject_unported(mesh, grouped)
+    _validate_compaction(compact_iterations, screen_iterations)
     if stopping_criterion not in STOPPING_CRITERIA:
         raise ValueError("unsupported stopping criterion %r"
                          % (stopping_criterion,))
@@ -372,6 +520,83 @@ def _as_restart_generator(generator, device):
     return torch.Generator(device=device).manual_seed(int(generator))
 
 
+def _schedule(compacted, screened, *, compact_iterations,
+              screen_iterations, screen_keep, screen_margin):
+    """Run the scheduler the arguments select: ``screened(**kw)`` with
+    ``screen_iterations``, else ``compacted(round_iterations=...)``.
+    Returns ``(best, costs, n_iters, screen)``, ``screen`` None unless
+    screened."""
+    if screen_iterations is not None:
+        return screened(screen_iterations=int(screen_iterations),
+                        screen_keep=float(screen_keep),
+                        screen_margin=screen_margin)
+    best, costs, n_iters = compacted(
+        round_iterations=_round_iterations(compact_iterations))
+    return best, costs, n_iters, None
+
+
+def _aa_restarts(X, gram, n_components, generator, n_init, *, has_data,
+                 delta, init, tolerance, max_iterations, n_extra_steps,
+                 stopping_criterion, dictionary_solver_kwargs,
+                 weights_solver_kwargs, scale_factors_solver_kwargs,
+                 restart_chunk, pad_components_to, screen_iterations,
+                 screen_keep, screen_margin, compact_iterations):
+    """The fit of :func:`aa_fit_restarts` (``has_data``: ``X`` is the
+    data, ``gram`` its Gram) and :func:`kernel_aa_fit_restarts` (both
+    the kernel).  Returns ``(Z, C, alpha, out)``: the winner's factors
+    sliced back to ``n_components`` and the result dict's scalars and
+    per-restart arrays."""
+    generator = _as_restart_generator(generator, X.device)
+    k_out = int(n_components)
+    k_fit, component_mask = _padded_components(k_out, pad_components_to)
+
+    dict_cfg = make_config(SPGSolverConfig, dictionary_solver_kwargs)
+    weights_cfg = make_config(QPSolverConfig, weights_solver_kwargs)
+    scale_cfg = make_config(SPGSolverConfig, scale_factors_solver_kwargs)
+    do_scale = float(delta) != 0.0
+
+    diss = dissimilarities_from_kernel(gram) if init == 'furthest_sum' \
+        else None
+    states = _init_aa_state(
+        generator, int(n_init), float(delta), n_samples=gram.shape[0],
+        n_components=k_fit, init=init, diss=diss,
+        n_extra_steps=int(n_extra_steps), do_scale=do_scale,
+        dtype=gram.dtype, device=gram.device,
+        component_mask=component_mask)
+    statics = dict(max_iterations=int(max_iterations),
+                   criterion=stopping_criterion, do_scale=do_scale,
+                   has_data=has_data, dict_cfg=dict_cfg,
+                   weights_cfg=weights_cfg, scale_cfg=scale_cfg)
+    grouped_backend = resolve_qp_backend(
+        weights_cfg.backend, k=k_fit, regime='sharded_fit',
+        device=X.device)
+    common = dict(statics=statics, grouped_backend=grouped_backend,
+                  restart_chunk=restart_chunk, gram=gram,
+                  component_mask=component_mask)
+    args = (X, states, float(delta), float(tolerance))
+    best, costs, n_iters, screen = _schedule(
+        lambda **kw: _compacted_aa_best(*args, **common, **kw),
+        lambda **kw: _screened_aa_best(*args, **common, **kw),
+        compact_iterations=compact_iterations,
+        screen_iterations=screen_iterations, screen_keep=screen_keep,
+        screen_margin=screen_margin)
+
+    Z, C, alpha, trace, best_cost, n_iter_best = best
+    if component_mask is not None:
+        Z, C, alpha = Z[:, :k_out], C[:k_out], alpha[:k_out]
+    out = {
+        'cost': best_cost,
+        'n_iter': n_iter_best,
+        'cost_deltas': np.asarray(trace)[:n_iter_best],
+        'costs': costs,
+        'n_iters': n_iters,
+        'best_index': int(np.argmin(costs)),
+    }
+    if screen is not None:
+        out['screen'] = screen
+    return Z, C, alpha, out
+
+
 @apply_matmul_precision
 def aa_fit_restarts(data, n_components, generator, n_init, delta=0.0,
                     init='furthest_sum', tolerance=1e-6,
@@ -380,8 +605,10 @@ def aa_fit_restarts(data, n_components, generator, n_init, delta=0.0,
                     dictionary_solver_kwargs=None,
                     weights_solver_kwargs=None,
                     scale_factors_solver_kwargs=None,
-                    mesh=None, restart_chunk=None, pad_components_to=None,
-                    screen_iterations=None, grouped=None,
+                    mesh=None, restart_axis='restarts',
+                    restart_chunk=None, pad_components_to=None,
+                    screen_iterations=None, screen_keep=0.25,
+                    screen_margin=None, grouped=None,
                     compact_iterations=None, device=None):
     """Best-of-``n_init`` archetypal analysis on one device.
 
@@ -407,65 +634,117 @@ def aa_fit_restarts(data, n_components, generator, n_init, delta=0.0,
     not run on the kernels (the CPU, ``backend='xla'``), the JAX package
     falls back to its vmapped per-restart path under ``grouped=None``;
     the port keeps the grouped structure with the row solver.
-    ``grouped`` is None or True; False (the vmapped path),
-    ``screen_iterations``, ``pad_components_to`` and ``mesh`` raise
-    ``ValueError`` naming the ROADMAP.md item that ports them.
+
+    ``screen_iterations`` runs screened restarts (:func:`_screened_best`):
+    every restart runs that many iterations at most, the best
+    ``screen_keep`` fraction (and, with ``screen_margin``, every
+    restart within that many cost units of the cut) resumes afresh to
+    convergence.  It is a heuristic: the winner is the unscreened one's
+    when that restart survives the screen.  An integer
+    ``compact_iterations`` with it raises ``ValueError``.  The result
+    then has a ``screen`` dict (``n_screened``, ``n_kept``,
+    ``screen_cut``, ``screen_margin_observed``); ``n_iter`` and
+    ``cost_deltas`` describe the winner's resume phase, ``n_iters`` the
+    per-restart totals.
+
+    ``pad_components_to`` runs the fit padded to that many components
+    (when it is at least ``n_components``): the padded weights are
+    pinned to exactly 0 by the weights QP's mask, so the fit is an
+    ``n_components`` model, and the outputs are sliced back to
+    ``n_components``.  Padded restarts start from other random states
+    than unpadded ones (and FurthestSum picks as many samples as the
+    padded count), so their costs differ at the level of restart noise.
+    The JAX package pads so that one compiled program serves a bucket
+    of ``k``; the port compiles nothing per ``k``, so padding only adds
+    width (the sweeps' ``component_bucket`` is off by default).
+
+    ``grouped`` is None or True; False (the vmapped path) and ``mesh``
+    raise ``ValueError`` naming the ROADMAP.md item that ports them.
+    ``restart_axis`` names a mesh axis, and is unused without one.
 
     Returns a dict with the best restart's ``weights``, ``dictionary``,
     ``alpha``, ``archetypes`` (tensors), ``cost`` and ``n_iter``, its
     ``cost_deltas``, and ``costs``, ``n_iters`` and ``best_index`` over
-    all restarts (numpy).
+    all restarts (numpy), and ``screen`` when screened.
     """
-    _reject_unported(mesh, screen_iterations, pad_components_to, grouped)
+    del restart_axis  # a mesh axis: mesh= raises
+    _check_fit_args(stopping_criterion, n_init, mesh, grouped,
+                    compact_iterations, screen_iterations)
     if init not in ('random', 'furthest_sum'):
         raise ValueError("init must be 'random' or 'furthest_sum', got %r"
                          % (init,))
-    _check_fit_args(stopping_criterion, n_init)
 
     X = as_input(data, device)
-    generator = _as_restart_generator(generator, X.device)
-
-    dict_cfg = make_config(SPGSolverConfig, dictionary_solver_kwargs)
-    weights_cfg = make_config(QPSolverConfig, weights_solver_kwargs)
-    scale_cfg = make_config(SPGSolverConfig, scale_factors_solver_kwargs)
-    do_scale = float(delta) != 0.0
-
     # The Gram, once per fit: every round and chunk takes it.
     gram = _gram_once(X)
-    diss = dissimilarities_from_kernel(gram) if init == 'furthest_sum' \
-        else None
-    states = _init_aa_state(
-        generator, int(n_init), float(delta), n_samples=X.shape[0],
-        n_components=int(n_components), init=init, diss=diss,
-        n_extra_steps=int(n_extra_steps), do_scale=do_scale,
-        dtype=X.dtype, device=X.device)
-    statics = dict(max_iterations=int(max_iterations),
-                   criterion=stopping_criterion, do_scale=do_scale,
-                   has_data=True, dict_cfg=dict_cfg,
-                   weights_cfg=weights_cfg, scale_cfg=scale_cfg)
-    grouped_backend = resolve_qp_backend(
-        weights_cfg.backend, k=int(n_components), regime='sharded_fit',
-        device=X.device)
-    common = dict(statics=statics, grouped_backend=grouped_backend,
-                  restart_chunk=restart_chunk, gram=gram)
-    best, costs, n_iters = _compacted_aa_best(
-        X, states, float(delta), float(tolerance),
-        round_iterations=_round_iterations(compact_iterations), **common)
+    Z, C, alpha, out = _aa_restarts(
+        X, gram, n_components, generator, n_init, has_data=True,
+        delta=delta, init=init, tolerance=tolerance,
+        max_iterations=max_iterations, n_extra_steps=n_extra_steps,
+        stopping_criterion=stopping_criterion,
+        dictionary_solver_kwargs=dictionary_solver_kwargs,
+        weights_solver_kwargs=weights_solver_kwargs,
+        scale_factors_solver_kwargs=scale_factors_solver_kwargs,
+        restart_chunk=restart_chunk, pad_components_to=pad_components_to,
+        screen_iterations=screen_iterations, screen_keep=screen_keep,
+        screen_margin=screen_margin, compact_iterations=compact_iterations)
+    dictionary = alpha[:, None] * C if float(delta) != 0.0 else C
+    return dict(weights=Z, dictionary=dictionary, alpha=alpha,
+                archetypes=dictionary @ X, **out)
 
-    Z, C, alpha, trace, best_cost, n_iter_best = best
-    dictionary = alpha[:, None] * C if do_scale else C
-    return {
-        'weights': Z,
-        'dictionary': dictionary,
-        'alpha': alpha,
-        'archetypes': dictionary @ X,
-        'cost': best_cost,
-        'n_iter': n_iter_best,
-        'cost_deltas': np.asarray(trace)[:n_iter_best],
-        'costs': costs,
-        'n_iters': n_iters,
-        'best_index': int(np.argmin(costs)),
-    }
+
+@apply_matmul_precision
+def kernel_aa_fit_restarts(kernel, n_components, generator, n_init,
+                           delta=0.0, init='furthest_sum', tolerance=1e-6,
+                           max_iterations=500, n_extra_steps=10,
+                           stopping_criterion='abs_delta_f',
+                           dictionary_solver_kwargs=None,
+                           weights_solver_kwargs=None,
+                           scale_factors_solver_kwargs=None,
+                           mesh=None, restart_axis='restarts',
+                           restart_chunk=None, pad_components_to=None,
+                           screen_iterations=None, screen_keep=0.25,
+                           screen_margin=None, grouped=None,
+                           compact_iterations=None, device=None):
+    """Best-of-``n_init`` kernel AA on a precomputed (n, n) kernel
+    matrix, for ``KernelAA`` users.
+
+    :func:`aa_fit_restarts` on a kernel: the same arguments, schedulers
+    (compaction, screening), padded ``k`` and device rule, with
+    FurthestSum on the kernel's dissimilarities and the trace-form cost
+    ``0.5 (tr K - 2 tr(diag(alpha) C K Z) + tr(Z'Z diag(alpha) C K C'
+    diag(alpha))) / n``, as there is no data matrix.
+
+    Returns a dict with the best restart's ``weights``, ``dictionary``
+    and ``alpha`` (tensors), ``cost``, ``n_iter``, ``cost_deltas``, and
+    ``costs``, ``n_iters`` and ``best_index`` over all restarts (numpy),
+    and ``screen`` when screened.  There are no ``archetypes``, and
+    ``dictionary`` is ``C`` itself, not ``diag(alpha) C`` as in
+    :func:`aa_fit_restarts` (as in the JAX package).
+    """
+    del restart_axis  # a mesh axis: mesh= raises
+    _check_fit_args(stopping_criterion, n_init, mesh, grouped,
+                    compact_iterations, screen_iterations)
+    if init not in ('random', 'furthest_sum'):
+        raise ValueError("init must be 'random' or 'furthest_sum', got %r"
+                         % (init,))
+
+    K = as_input(kernel, device)
+    if K.ndim != 2 or K.shape[0] != K.shape[1]:
+        raise ValueError("expected a square kernel matrix, got shape %s"
+                         % (tuple(K.shape),))
+    Z, C, alpha, out = _aa_restarts(
+        K, K, n_components, generator, n_init, has_data=False,
+        delta=delta, init=init, tolerance=tolerance,
+        max_iterations=max_iterations, n_extra_steps=n_extra_steps,
+        stopping_criterion=stopping_criterion,
+        dictionary_solver_kwargs=dictionary_solver_kwargs,
+        weights_solver_kwargs=weights_solver_kwargs,
+        scale_factors_solver_kwargs=scale_factors_solver_kwargs,
+        restart_chunk=restart_chunk, pad_components_to=pad_components_to,
+        screen_iterations=screen_iterations, screen_keep=screen_keep,
+        screen_margin=screen_margin, compact_iterations=compact_iterations)
+    return dict(weights=Z, dictionary=C, alpha=alpha, **out)
 
 
 # ---------------------------------------------------------------------------
@@ -474,14 +753,20 @@ def aa_fit_restarts(data, n_components, generator, n_init, delta=0.0,
 
 
 def _init_gpnh_state(generator, X, diss, n_init, *, n_components, init,
-                     n_extra_steps):
+                     n_extra_steps, component_mask=None):
     """Initial states of ``n_init`` GPNH restarts: row-stochastic
     ``Z (R, n, k)`` and ``W (R, d, k)``, either ``sqrt(mean|X| / k)
     N(0, 1)`` or, with ``init='furthest_sum'``, the data rows that
     :func:`furthest_sum_device` picks from the dissimilarities ``diss``,
     one random start index per restart.  The numbers are drawn on
-    ``generator``'s device and moved to ``X``'s.  Matches the JAX
-    package's ``_init_gpnh_state`` in distribution."""
+    ``generator``'s device and moved to ``X``'s.
+
+    ``component_mask`` (a padded fit, ``k`` the padded count): the
+    random dictionary's scale takes the active count, ``sqrt(mean|X| /
+    k_act)``; the padded columns of ``W`` are 0 and ``Z`` is uniform on
+    the active columns.  A padded init is not the unpadded one embedded:
+    it draws other numbers.  Matches the JAX package's
+    ``_init_gpnh_state`` in distribution."""
     n_samples, n_features = X.shape
     dtype = X.dtype
     if init == 'furthest_sum':
@@ -492,23 +777,38 @@ def _init_gpnh_state(generator, X, diss, n_init, *, n_components, init,
                                        extra_steps=n_extra_steps)
         W = X[selected].transpose(1, 2).contiguous()
     else:
-        avg = torch.sqrt(torch.mean(torch.abs(X)) / n_components)
+        k_act = (n_components if component_mask is None
+                 else int(component_mask.sum()))
+        avg = torch.sqrt(torch.mean(torch.abs(X)) / k_act)
         W = avg * torch.randn((n_init, n_features, n_components),
                               generator=generator, dtype=dtype,
                               device=generator.device).to(X.device)
-    Z = right_stochastic_matrix(generator, (n_init, n_samples, n_components),
-                                dtype=dtype, device=X.device)
+    shape = (n_init, n_samples, n_components)
+    if component_mask is None:
+        Z = right_stochastic_matrix(generator, shape, dtype=dtype,
+                                    device=X.device)
+    else:
+        W = W * component_mask.to(X.device, dtype)
+        Z = _masked_uniform_weights(generator, shape, component_mask,
+                                    dtype, X.device)
     return Z, W
 
 
 def _gpnh_grouped_iterate(X, *, lambda_W, weights_backend, weights_kwargs,
-                          n_components):
+                          n_components, component_mask=None):
     """Restart-batched GPNH iterate with the weights QP grouped across
     restarts: per iteration the exact k x k dictionary solve of every
     restart (``update_gpnh_dictionary``: one batched SVD),
     then the weights QPs of all restarts in one
     :func:`quad_simplex_spg_batch_grouped` call, then the trace-form
     cost in float64.  ``lambda_W`` is a number.
+
+    ``component_mask`` runs a padded fit: the masked GPNH Gram and
+    penalty (active-k prefactor over the active columns), the padded
+    columns of ``W`` set to 0 after each dictionary solve (``Z'Z`` is
+    zero there, so the solve's system is singular by construction and
+    the least-squares cutoff drops those directions), and the mask in
+    the weights QP.
 
     Returns ``(iterate, cost0)``: ``iterate(Zs, Ws) -> (Zs, Ws, costs)``
     and ``cost0(Zs, Ws)``, the initial costs.
@@ -517,16 +817,25 @@ def _gpnh_grouped_iterate(X, *, lambda_W, weights_backend, weights_kwargs,
     sdt = _GPNH_SDT
     lambda_W = float(lambda_W)
     trace_XtX = torch.sum(X.to(sdt) * X.to(sdt))
-    GW = _gpnh_gram(n_features, n_components, X.dtype, X.device)
+    if component_mask is None:
+        GW = _gpnh_gram(n_features, n_components, X.dtype, X.device)
+    else:
+        mask = component_mask.to(X.device)
+        keep = mask.to(X.dtype)
+        GW = _gpnh_gram_masked(n_features, mask, X.dtype, X.device)
 
     def penalty(Ws):
         if lambda_W == 0:
             return torch.zeros(Ws.shape[:1], dtype=sdt, device=Ws.device)
-        return lambda_W * gpnh_regularization(Ws).to(sdt)
+        if component_mask is None:
+            return lambda_W * gpnh_regularization(Ws).to(sdt)
+        return lambda_W * gpnh_regularization_masked(Ws, mask).to(sdt)
 
     def dict_update(Zs):
         Ws = update_gpnh_dictionary(X, Zs, Zs.transpose(1, 2) @ Zs, GW,
                                     lambda_W=lambda_W)
+        if component_mask is not None:
+            Ws = Ws * keep
         return Ws, Ws.transpose(1, 2) @ Ws, -(X @ Ws)
 
     def cost_of(Zs, Ws, WtWs, XWs):
@@ -538,7 +847,8 @@ def _gpnh_grouped_iterate(X, *, lambda_W, weights_backend, weights_kwargs,
     def iterate(Zs, Ws):
         Ws, WtWs, Bs = dict_update(Zs)
         Zs = quad_simplex_spg_batch_grouped(
-            WtWs, Bs, Zs, backend=weights_backend, **weights_kwargs)
+            WtWs, Bs, Zs, backend=weights_backend, mask=component_mask,
+            **weights_kwargs)
         return Zs, Ws, cost_of(Zs, Ws, WtWs, -Bs)
 
     def cost0(Zs, Ws):
@@ -547,38 +857,59 @@ def _gpnh_grouped_iterate(X, *, lambda_W, weights_backend, weights_kwargs,
     return iterate, cost0
 
 
-def _gpnh_parts(X, lambda_W, statics, grouped_backend):
+def _gpnh_parts(X, lambda_W, statics, grouped_backend, component_mask=None):
     """``(iterate, cost0)`` of :func:`_gpnh_grouped_iterate` for a fit's
     ``statics`` (``max_iterations``, ``criterion``, ``weights_cfg``,
     ``n_components``)."""
     return _gpnh_grouped_iterate(
         X, lambda_W=lambda_W, weights_backend=grouped_backend,
         weights_kwargs=statics['weights_cfg'].kwargs(),
-        n_components=statics['n_components'])
+        n_components=statics['n_components'],
+        component_mask=component_mask)
 
 
 def _make_gpnh_grouped_round_run(X, *, lambda_W, tolerance, statics,
-                                 grouped_backend):
+                                 grouped_backend, component_mask=None):
     """One bounded compaction round of grouped GPNH restarts
     (:func:`_round_run`; the population is ``(Z_all, W_all)``)."""
-    iterate, cost0 = _gpnh_parts(X, lambda_W, statics, grouped_backend)
+    iterate, cost0 = _gpnh_parts(X, lambda_W, statics, grouped_backend,
+                                 component_mask)
     return _round_run(iterate, cost0, tolerance=tolerance,
                       criterion=statics['criterion'])
 
 
 @apply_matmul_precision
 def _compacted_gpnh_best(X, states, lambda_W, tolerance, *, statics,
-                         grouped_backend, restart_chunk, round_iterations):
+                         grouped_backend, restart_chunk, round_iterations,
+                         component_mask=None):
     """Multi-restart GPNH with convergence compaction, from given
     initial states ``(Zs, Ws)`` (not modified; see
     :func:`_compacted_best`).  Returns ``(best, costs, n_iters)`` with
     ``best = (Z, W, trace, best_cost, best_n_iter)``."""
     run = _make_gpnh_grouped_round_run(
         X, lambda_W=lambda_W, tolerance=tolerance, statics=statics,
-        grouped_backend=grouped_backend)
+        grouped_backend=grouped_backend, component_mask=component_mask)
     return _best_of_compacted(
         states, run, max_iterations=int(statics['max_iterations']),
         restart_chunk=restart_chunk, round_iterations=round_iterations)
+
+
+@apply_matmul_precision
+def _screened_gpnh_best(X, states, lambda_W, tolerance, *, statics,
+                        grouped_backend, restart_chunk, screen_iterations,
+                        screen_keep, screen_margin=None,
+                        component_mask=None):
+    """Screened multi-restart GPNH (:func:`_screened_best`) from given
+    initial states ``(Zs, Ws)``, both phases on the round runner of
+    :func:`_compacted_gpnh_best`.  Returns ``(best, costs, n_iters,
+    screen)``."""
+    run = _make_gpnh_grouped_round_run(
+        X, lambda_W=lambda_W, tolerance=tolerance, statics=statics,
+        grouped_backend=grouped_backend, component_mask=component_mask)
+    return _screened_best(
+        states, run, max_iterations=int(statics['max_iterations']),
+        screen_iterations=screen_iterations, restart_chunk=restart_chunk,
+        screen_keep=screen_keep, screen_margin=screen_margin)
 
 
 @apply_matmul_precision
@@ -586,52 +917,69 @@ def gpnh_fit_restarts(data, n_components, generator, n_init, lambda_W=0.0,
                       init='random', tolerance=1e-6, max_iterations=500,
                       n_extra_steps=10, stopping_criterion='abs_delta_f',
                       weights_solver_kwargs=None, mesh=None,
-                      restart_chunk=None, pad_components_to=None,
-                      screen_iterations=None, grouped=None,
+                      restart_axis='restarts', restart_chunk=None,
+                      pad_components_to=None, screen_iterations=None,
+                      screen_keep=0.25, screen_margin=None, grouped=None,
                       compact_iterations=None, device=None):
     """Best-of-``n_init`` GPNH convex coding on one device.
 
     ``data``, ``generator``, ``device``, the schedulers
-    (``compact_iterations``, ``restart_chunk``), ``grouped``, the
-    weights backend and the options that raise are as in
+    (``compact_iterations``, ``restart_chunk``, ``screen_iterations``,
+    ``screen_keep``, ``screen_margin``), ``grouped``, ``restart_axis``,
+    the weights backend and the options that raise are as in
     :func:`aa_fit_restarts`.  ``init``: 'random' (the default) or
     'furthest_sum' (on the device, ``n_extra_steps`` refinement passes).
+    ``pad_components_to`` runs a padded fit (the masked penalty takes
+    the active count, so the fit optimizes the ``n_components``
+    objective; the padded columns of both factors stay exactly 0) and
+    slices the outputs back to ``n_components``.
 
     Returns a dict with the best restart's ``weights`` and
     ``dictionary`` (tensors), ``cost``, ``n_iter`` and ``cost_deltas``,
     and ``costs``, ``n_iters`` and ``best_index`` over all restarts
-    (numpy).
+    (numpy), and ``screen`` when screened.
     """
-    _reject_unported(mesh, screen_iterations, pad_components_to, grouped)
+    del restart_axis  # a mesh axis: mesh= raises
+    _check_fit_args(stopping_criterion, n_init, mesh, grouped,
+                    compact_iterations, screen_iterations)
     if init not in ('random', 'furthest_sum'):
         raise ValueError(
             "gpnh_fit_restarts supports init='random' or "
             "'furthest_sum' (the reference drivers' choices)")
-    _check_fit_args(stopping_criterion, n_init)
 
     X = as_input(data, device)
     generator = _as_restart_generator(generator, X.device)
-    k = int(n_components)
+    k_out = int(n_components)
+    k_fit, component_mask = _padded_components(k_out, pad_components_to)
     weights_cfg = make_config(QPSolverConfig, weights_solver_kwargs)
 
     diss = (dissimilarities_from_kernel(_gram_once(X))
             if init == 'furthest_sum' else None)
     states = _init_gpnh_state(generator, X, diss, int(n_init),
-                              n_components=k, init=init,
-                              n_extra_steps=int(n_extra_steps))
+                              n_components=k_fit, init=init,
+                              n_extra_steps=int(n_extra_steps),
+                              component_mask=component_mask)
     statics = dict(max_iterations=int(max_iterations),
                    criterion=stopping_criterion, weights_cfg=weights_cfg,
-                   n_components=k)
-    grouped_backend = resolve_qp_backend(weights_cfg.backend, k=k,
+                   n_components=k_fit)
+    grouped_backend = resolve_qp_backend(weights_cfg.backend, k=k_fit,
                                          regime='sharded_fit',
                                          device=X.device)
-    best, costs, n_iters = _compacted_gpnh_best(
-        X, states, float(lambda_W), float(tolerance), statics=statics,
-        grouped_backend=grouped_backend, restart_chunk=restart_chunk,
-        round_iterations=_round_iterations(compact_iterations))
+    common = dict(statics=statics, grouped_backend=grouped_backend,
+                  restart_chunk=restart_chunk,
+                  component_mask=component_mask)
+    args = (X, states, float(lambda_W), float(tolerance))
+    best, costs, n_iters, screen = _schedule(
+        lambda **kw: _compacted_gpnh_best(*args, **common, **kw),
+        lambda **kw: _screened_gpnh_best(*args, **common, **kw),
+        compact_iterations=compact_iterations,
+        screen_iterations=screen_iterations, screen_keep=screen_keep,
+        screen_margin=screen_margin)
 
     Z, W, trace, best_cost, n_iter_best = best
-    return {
+    if component_mask is not None:
+        Z, W = Z[:, :k_out], W[:, :k_out]
+    out = {
         'weights': Z,
         'dictionary': W,
         'cost': best_cost,
@@ -641,3 +989,6 @@ def gpnh_fit_restarts(data, n_components, generator, n_init, lambda_W=0.0,
         'n_iters': n_iters,
         'best_index': int(np.argmin(costs)),
     }
+    if screen is not None:
+        out['screen'] = screen
+    return out

@@ -2,9 +2,9 @@
 card: K1 and K2 (csrc/simplex_qp.cu), K3 and K4
 (csrc/simplex_qp_unpacked.cu), and the K3/K4 kernel's scheduling of
 rows (the same bits whatever warp solves a row); then the paths that
-run them against the CPU: a GPNH fit on K2, PCA, and the restart fits'
+run them against the CPU: a GPNH fit on K2, PCA, the restart fits'
 default rounds (``compact_iterations=None``) against shorter ones for
-AA and GPNH (K1).
+AA and GPNH (K1), and padded (masked K1) and screened restart fits.
 
 Marked ``cuda``: the kernel has no CPU mode, so these tests skip where
 no CUDA device is found.  tests/conftest.py imports JAX, which a GPU
@@ -486,3 +486,104 @@ def test_aa_one_shot_and_compaction_agree_on_the_card(cuda):
                       stopping_criterion='rel_delta_f', max_iterations=80,
                       dictionary_solver_kwargs={'max_iterations': 1},
                       weights_solver_kwargs={'max_iterations': 25})
+
+
+def _card_and_cpu(fit_restarts, X, k, **kw):
+    """One float64 fit from the same seed (a CPU generator draws the
+    states on both devices) on the card, where K1 solves the weights,
+    and on the CPU, where its plain version does."""
+    res = {}
+    for device in ("cuda", "cpu"):
+        before = simplex_qp.LAUNCHES
+        res[device] = fit_restarts(torch.as_tensor(X, device=device), k,
+                                   torch.Generator().manual_seed(0), 8,
+                                   **kw)
+        launched = simplex_qp.LAUNCHES - before
+        assert (launched > 0) == (device == "cuda"), (device, launched)
+    card, cpu = res["cuda"], res["cpu"]
+    np.testing.assert_allclose(card["costs"], cpu["costs"], rtol=1e-6)
+    np.testing.assert_array_equal(card["n_iters"], cpu["n_iters"])
+    assert card["best_index"] == cpu["best_index"]
+    return card, cpu
+
+
+_PADDED = dict(pad_components_to=8, restart_chunk=4,
+               weights_solver_kwargs={'max_iterations': 200,
+                                      'backend': 'pallas'})
+
+
+@pytest.mark.parametrize("scheduler", ["compacted", "screened"])
+def test_padded_aa_fit_on_card_matches_cpu(cuda, scheduler):
+    """The masked K1 path, float64: the small fit's restart states
+    (k = 6) and the same states at width 8 (padded weights 0, padded
+    dictionary rows uniform), on the card and on the CPU.  On the card
+    the padded fit gives the unpadded one's costs and iteration counts
+    (a masked lane adds exact zeros), its padded weights exactly 0; and
+    card and CPU agree as for the unpadded fit
+    (test_fit_on_card_matches_cpu).  The screen is 36 iterations long,
+    late in these fits (33-45 iterations): a pruned restart reports a
+    mid-trajectory cost, which rounding moves by 1e-5 at 20
+    iterations."""
+    from convex_dim_red_tpu_torch.models import _common
+    from convex_dim_red_tpu_torch.parallel import restarts
+    statics = dict(
+        max_iterations=200, criterion='rel_delta_f', do_scale=False,
+        has_data=True,
+        dict_cfg=_common.make_config(_common.SPGSolverConfig,
+                                     {'max_iterations': 1}),
+        weights_cfg=_common.make_config(_common.QPSolverConfig,
+                                        {'max_iterations': 25}),
+        scale_cfg=_common.SPGSolverConfig())
+    _, mask = restarts._padded_components(6, 8)
+    res = {}
+    for label, device in (("card", cuda), ("cpu", "cpu")):
+        X = torch.as_tensor(_planted(0, 300, 40, 6, 0.01), device=device)
+        Z, C, alpha = restarts._init_aa_state(
+            torch.Generator().manual_seed(0), 8, 0.0, n_samples=300,
+            n_components=6, init='random', diss=None, n_extra_steps=10,
+            do_scale=False, dtype=torch.float64, device=device)
+        Z_pad = torch.zeros((8, 300, 8), dtype=Z.dtype, device=device)
+        Z_pad[..., :6] = Z
+        C_pad = torch.full((8, 8, 300), 1.0 / 300, dtype=C.dtype,
+                           device=device)
+        C_pad[:, :6] = C
+        a_pad = torch.ones((8, 8), dtype=alpha.dtype, device=device)
+        for name, states, m in (("unpadded", (Z, C, alpha), None),
+                                ("padded", (Z_pad, C_pad, a_pad), mask)):
+            kw = dict(statics=statics, grouped_backend='pallas',
+                      restart_chunk=4, component_mask=m)
+            if scheduler == "compacted":
+                best, costs, n_iters = restarts._compacted_aa_best(
+                    X, states, 0.0, 1e-6, round_iterations=32, **kw)
+            else:
+                best, costs, n_iters, _ = restarts._screened_aa_best(
+                    X, states, 0.0, 1e-6, screen_iterations=36,
+                    screen_keep=0.5, **kw)
+            res[label, name] = (costs, n_iters, best[0])
+    card, card_pad = res["card", "unpadded"], res["card", "padded"]
+    np.testing.assert_allclose(card_pad[0], card[0], rtol=1e-10)
+    np.testing.assert_array_equal(card_pad[1], card[1])
+    assert bool((card_pad[2][:, 6:] == 0).all())
+    cpu_pad = res["cpu", "padded"]
+    np.testing.assert_allclose(card_pad[0], cpu_pad[0], rtol=1e-6)
+    np.testing.assert_array_equal(card_pad[1], cpu_pad[1])
+
+
+def test_padded_gpnh_fit_on_card_matches_cpu(cuda):
+    card, _ = _card_and_cpu(
+        gpnh_fit_restarts, _planted(6, 300, 20, 3, 0.02), 3, lambda_W=1e-3,
+        tolerance=1e-6, stopping_criterion='rel_delta_f', max_iterations=120,
+        **_PADDED)
+    assert card["dictionary"].shape == (20, 3)
+
+
+def test_screened_fit_on_card_matches_cpu(cuda):
+    card, cpu = _card_and_cpu(
+        aa_fit_restarts, _planted(7, 300, 40, 6, 0.01), 6, init='random',
+        tolerance=1e-6, stopping_criterion='rel_delta_f', max_iterations=120,
+        dictionary_solver_kwargs={'max_iterations': 1}, restart_chunk=4,
+        weights_solver_kwargs={'max_iterations': 25, 'backend': 'pallas'},
+        screen_iterations=15, screen_keep=0.5)
+    assert card["screen"]["n_kept"] == cpu["screen"]["n_kept"] == 4
+    assert card["screen"]["screen_cut"] == pytest.approx(
+        cpu["screen"]["screen_cut"], rel=1e-6)

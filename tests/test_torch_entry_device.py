@@ -16,7 +16,10 @@ import torch
 
 from convex_dim_red_tpu_torch import (PCA, ArchetypalAnalysis,
                                       GPNHConvexCoding, KernelAA)
-from convex_dim_red_tpu_torch import aa_fit_restarts, gpnh_fit_restarts
+from convex_dim_red_tpu_torch import (aa_fit_restarts, gpnh_fit_restarts,
+                                      kernel_aa_fit_restarts)
+from convex_dim_red_tpu_torch.parallel import (aa_model_selection_sweep,
+                                               gpnh_model_selection_sweep)
 from convex_dim_red_tpu_torch.ops import simplex_qp
 from convex_dim_red_tpu_torch.utils.validation import as_input
 
@@ -30,6 +33,7 @@ RESTARTS = dict(init='random', max_iterations=20,
 ESTIMATOR = dict(init='furthest_sum', random_state=0, max_iterations=20)
 GPNH = dict(lambda_W=1e-3, max_iterations=10,
             weights_solver_kwargs={'max_iterations': 10})
+SWEEP = dict(n_init=2, restart_chunk=None, **RESTARTS)
 
 
 @pytest.fixture
@@ -54,9 +58,13 @@ def _fitted_on_cpu():
     lambda X: gpnh_fit_restarts(X, K, 0, 2, **GPNH),
     lambda X: GPNHConvexCoding(K, random_state=0, **GPNH).fit(X),
     lambda X: PCA(K).fit(X),
+    lambda X: kernel_aa_fit_restarts(X @ X.T, K, 0, 2, **RESTARTS),
+    lambda X: aa_model_selection_sweep(X, [2, K], 0, **SWEEP),
+    lambda X: gpnh_model_selection_sweep(X, [2, K], 0, n_init=2, **GPNH),
 ], ids=["aa_fit_restarts", "fit", "fit_transform", "KernelAA.fit",
         "transform", "gpnh_fit_restarts", "GPNHConvexCoding.fit",
-        "PCA.fit"])
+        "PCA.fit", "kernel_aa_fit_restarts", "aa_model_selection_sweep",
+        "gpnh_model_selection_sweep"])
 def test_numpy_without_device_needs_the_card(no_cuda, call):
     with pytest.raises(RuntimeError, match=re.escape("device='cpu'")):
         call(_data())
@@ -118,6 +126,22 @@ def test_gpnh_and_pca_with_device_cpu_match_the_cpu_tensor_fit(no_cuda):
     assert scores.device.type == "cpu"
     assert torch.equal(scores, PCA(K).fit_transform(torch.as_tensor(X)))
     assert torch.equal(pca.transform(X), pca.transform(torch.as_tensor(X)))
+
+
+def test_kernel_fit_and_sweeps_with_device_cpu_match_cpu_tensors(no_cuda):
+    X = _data(6)
+    Kmat = X @ X.T
+    want = kernel_aa_fit_restarts(torch.as_tensor(Kmat), K, 0, 2, **RESTARTS)
+    got = kernel_aa_fit_restarts(Kmat, K, 0, 2, device='cpu', **RESTARTS)
+    assert got['weights'].device.type == "cpu"
+    np.testing.assert_array_equal(got['costs'], want['costs'])
+    for sweep, kw in ((aa_model_selection_sweep, SWEEP),
+                      (gpnh_model_selection_sweep, dict(n_init=2, **GPNH))):
+        want = sweep(torch.as_tensor(X), [2, K], 0, **kw)
+        got = sweep(X, [2, K], 0, device='cpu', **kw)
+        for k in (2, K):
+            np.testing.assert_array_equal(got[k]['costs'], want[k]['costs'])
+            assert got[k]['rmse'] == want[k]['rmse']
 
 
 @pytest.mark.parametrize("data,dtype", [

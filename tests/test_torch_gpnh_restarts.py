@@ -244,11 +244,14 @@ def test_random_init_has_the_jax_scale():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(mesh=object()), dict(screen_iterations=10),
-    dict(pad_components_to=4), dict(grouped=False), dict(init='custom'),
-    dict(stopping_criterion='delta_x'), dict(n_init=0),
-    dict(weights_solver_kwargs={'max_iteration': 5})])
+    dict(mesh=object()), dict(screen_iterations=10, compact_iterations=20),
+    dict(pad_components_to='eight'), dict(grouped=False),
+    dict(init='custom'), dict(stopping_criterion='delta_x'),
+    dict(n_init=0), dict(weights_solver_kwargs={'max_iteration': 5})])
 def test_rejects_what_is_not_ported(bad):
+    # Screening and padding are ported: screen_iterations raises only
+    # beside an integer compact_iterations (two schedulers), and
+    # pad_components_to only when it is not a count.
     kw = dict(n_init=2)
     kw.update(bad)
     with pytest.raises(ValueError):

@@ -293,11 +293,14 @@ def test_scale_factors_fit_keeps_alpha_in_its_box():
 
 @pytest.mark.parametrize("bad", [
     dict(mesh=object()), dict(screen_iterations=10),
-    dict(pad_components_to=4), dict(grouped=False),
+    dict(pad_components_to='eight'), dict(grouped=False),
     dict(init='custom'), dict(stopping_criterion='delta_x'),
     dict(n_init=0),
     dict(weights_solver_kwargs={'max_iteration': 5})])
 def test_rejects_what_is_not_ported(bad):
+    # Screening and padding are ported: screen_iterations raises here
+    # only beside an integer compact_iterations (two schedulers), and
+    # pad_components_to only when it is not a count.
     kw = dict(init='random', compact_iterations=8, n_init=2)
     kw.update(bad)
     with pytest.raises(ValueError):
