@@ -104,12 +104,44 @@ the run with a non-zero exit and no result line:
     best of 100 within 1e-3 (the padded dictionary's columns checked
     after every solve), then a GPNH sweep k = 2..6 of 16 restarts,
     bucketed by 4, each k's audit within 1e-4.
+19. Config 2 (benchmarks/run_all.py:70-98) on phase 7's data:
+    ``KMeans(4, n_init=10, random_state=0)``, then ``gap_statistic``
+    with 20 and with 100 uniform reference trials, once to warm up
+    (counting the synchronising calls) and once timed: the inertia held
+    within 1% of the JAX package's 23,561,932 and both gaps within 0.01
+    of 1.5533; then ``_lloyd`` in float64 on the card against the CPU
+    from the same centroids at (600, 512, 4): equal labels and
+    ``n_iter``.
+20. ``kmeans_model_selection_sweep`` on the same data, k = 2..6, best of
+    10, 20 trials: the wall of each k, inertia falling with k, finite
+    gaps.
+21. The HadISST case-study analyses at full size, in memory (no netCDF:
+    the GPU machine has no h5py): a numpy copy of
+    bin/make_synthetic_hadisst.py at its defaults (149 years from 1870,
+    180 x 360, land 0.3, seed 0), the anomalies of the anomalies CLI
+    (base period 1981-2010, trend order 1), the HADISST spec's filters,
+    scos weights, flatten, missing mask and a 0.1 chronological split
+    (1610 training months, 178 held out), in float64 as a driver reads
+    them; then, called as the drivers call them (host arrays,
+    ``device='cuda'``, so fitted in float32), ``kmeans_analysis`` at
+    bin/run_hadisst_kmeans_wrapper.sh's settings, ``aa_analysis`` at the
+    hadisst_aa driver's and its wrapper's (k=4, best of 100, tolerance
+    1e-4, at most 10,000 iterations), ``pca_analysis`` with 20
+    components and ``gpnh_analysis`` on those PCs (k=4, lambda_W 1e-3,
+    the jra55_pca_gpnh driver's and wrapper's settings), each followed
+    by ``build_output_dataset``: finite attrs, ``test_set_size`` 178,
+    the training cost audited in float64 on the host within 1e-4, the
+    patterns NaN exactly on the land mask, and the K1/K2 launches.  K1
+    is held to its plain version on the operands of the AA and the GPNH
+    analyses' first launch and the first of their second round, K2 on
+    those of the AA validation transform: float64 row by row, float32
+    row by row (at most 1% of the rows apart by 1e-5) and in total.
 
 Each path runs with every launch count set to 0 just before it and read
-just after; phases 14-18 also check the K1 count against the one their
-restart schedule implies (the scheduler's calls are recorded).  The
-last lines of standard output are the card's name and power limit, a
-JSON object with every kernel's launches (in all and by path), error,
+just after; phases 14-18 and 21 also check the K1 count against the one
+their restart schedule implies (the scheduler's calls are recorded).
+The last lines of standard output are the card's name and power limit,
+a JSON object with every kernel's launches (in all and by path), error,
 times and bound, and the JSON result line.
 """
 
@@ -999,27 +1031,45 @@ def gpnh_audit(result, pcs_host):
             + GPNH_FIT['lambda_W'] * penalty)
 
 
-def capture_k1_operands(run, calls):
-    """Run ``run()`` with the grouped QP dispatch's K1 wrapper recording
-    the operands of its calls numbered ``calls`` (from 0): ``{call: (As,
-    Bs, X0s, solver arguments)}``."""
+#: The QP dispatch's (solvers/spg.py) names of the K1 and K2 wrappers.
+K1_WRAPPER, K2_WRAPPER = ("quad_simplex_qp_packed_grouped",
+                          "quad_simplex_qp_packed")
+
+
+def capture_operands(run, calls):
+    """Run ``run()`` with the QP dispatch's kernel wrappers named in
+    ``calls`` (``{wrapper: call numbers, from 0}``) recording the operands
+    of those calls: ``(run's result, {wrapper: {call: (A, B, X0, solver
+    arguments)}})``."""
     from convex_dim_red_tpu_torch.ops import simplex_qp
     from convex_dim_red_tpu_torch.solvers import spg
-    seen, captured = [0], {}
+    captured = {name: {} for name in calls}
 
-    def recording(As, Bs, X0s, **kw):
-        if seen[0] in calls:
-            captured[seen[0]] = (As.clone(), Bs.clone(), X0s.clone(), kw)
-        seen[0] += 1
-        return simplex_qp.quad_simplex_qp_packed_grouped(As, Bs, X0s, **kw)
+    def recording(name):
+        real, seen = getattr(simplex_qp, name), [0]
 
-    spg.quad_simplex_qp_packed_grouped = recording
+        def wrapper(A, B, X0, **kw):
+            if seen[0] in calls[name]:
+                captured[name][seen[0]] = (A.clone(), B.clone(), X0.clone(),
+                                           dict(kw))
+            seen[0] += 1
+            return real(A, B, X0, **kw)
+        return wrapper
+
+    for name in calls:
+        setattr(spg, name, recording(name))
     try:
-        run()
+        result = run()
     finally:
-        spg.quad_simplex_qp_packed_grouped = (
-            simplex_qp.quad_simplex_qp_packed_grouped)
-    return captured
+        for name in calls:
+            setattr(spg, name, getattr(simplex_qp, name))
+    return result, captured
+
+
+def capture_k1_operands(run, calls):
+    """K1's operands at its calls numbered ``calls``: ``{call: (As, Bs,
+    X0s, solver arguments)}``."""
+    return capture_operands(run, {K1_WRAPPER: calls})[1][K1_WRAPPER]
 
 
 def compacted_launches(n_iters, chunk, round_iterations, max_iterations):
@@ -1770,12 +1820,476 @@ def phase_gpnh_screened_padded(pcs, pcs_host, card):
     return paths
 
 
+#: Config 2 (benchmarks/run_all.py:70-98): k-means on phase 7's data and
+#: the JAX package's results on it (benchmarks/results.json, config2:
+#: inertia, and the gap of 20 and of 100 trials), with the limits the
+#: port is held to (its generator draws other seeds and references).
+CONFIG2_K, CONFIG2_INERTIA, CONFIG2_GAP = 4, 23561932.0, 1.5533
+CONFIG2_INERTIA_RTOL, CONFIG2_GAP_ATOL = 1e-2, 0.01
+#: The HadISST case study (phase 21): bin/make_synthetic_hadisst.py's
+#: defaults, the wrappers' base period, k and the PCs of the GPNH run.
+HADISST_SYNTHETIC = dict(start_year=1870, n_years=149, n_lat=180,
+                         n_lon=360, land_frac=0.3, seed=0)
+BASE_PERIOD = (1981, 2010)
+CASE_STUDY_K, CASE_STUDY_PCS = 4, 20
+#: Phase 21's float32 hold of K1/K2 on the analyses' operands: the share
+#: of rows that may be apart from the plain version by more than 1e-5 in
+#: objective (rounding decides a warm row's first step, phase 17), and
+#: the summed objective's limit against the float64 solve (phase 17's;
+#: a float32 solve, the plain version's too, stops short of float64's).
+PATH_F32_ROWS, PATH_F32_SUM = 0.01, 1e-4
+
+
+def count_syncs(run):
+    """``run()`` under ``torch.cuda.set_sync_debug_mode('warn')``:
+    ``(result, number of synchronising calls)``."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return result, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def phase_config2(X_host, card):
+    """Config 2: the best-of-10 k-means fit, then the gap statistic with
+    20 and with 100 uniform trials, warm-up (counting the synchronising
+    calls) and timed; then Lloyd in float64 on the card against the
+    CPU."""
+    import torch
+    from convex_dim_red_tpu_torch import KMeans, gap_statistic
+    from convex_dim_red_tpu_torch.models import kmeans
+    X = torch.as_tensor(X_host, device=DEVICE)
+    iterations = []
+    real_lloyd = kmeans._lloyd
+
+    def recording_lloyd(*args):
+        out = real_lloyd(*args)
+        iterations.append(int(out[3].max()))
+        return out
+
+    def run():
+        walls = {}
+        t0 = time.perf_counter()
+        model = KMeans(CONFIG2_K, n_init=10, random_state=0).fit(X)
+        torch.cuda.synchronize()
+        walls["fit"] = time.perf_counter() - t0
+        gaps = {}
+        for trials in (20, 100):
+            t0 = time.perf_counter()
+            gaps[trials] = gap_statistic(X, model.inertia_, CONFIG2_K,
+                                         n_trials=trials, random_state=0)
+            torch.cuda.synchronize()
+            walls["gap %d" % trials] = time.perf_counter() - t0
+        return model, gaps, walls
+
+    kmeans._lloyd = recording_lloyd
+    try:
+        (_, _, first), syncs = count_syncs(run)
+        lloyd_calls = list(iterations)
+        reset_launches()
+        model, gaps, walls = run()
+    finally:
+        kmeans._lloyd = real_lloyd
+    launches = read_launches()
+    check(sum(launches.values()) == 0, "k-means launched %s" % launches)
+    print("  config 2, KMeans(4, n_init=10) on %dx%d: fit %.3f s timed "
+          "(%.3f s first run), inertia %.1f (JAX %.1f, rel diff %.2e), the "
+          "winner's Lloyd iterations %d, on %s"
+          % (N_SAMPLES, N_FEATURES, walls["fit"], first["fit"],
+             model.inertia_, CONFIG2_INERTIA,
+             model.inertia_ / CONFIG2_INERTIA - 1.0, model.n_iter_, card))
+    for trials, (gap, sk) in sorted(gaps.items()):
+        print("  gap statistic, %d uniform trials: %.3f s timed (%.3f s "
+              "first run), gap %.5f, sk %.3e (JAX %.4f)"
+              % (trials, walls["gap %d" % trials],
+                 first["gap %d" % trials], gap, sk, CONFIG2_GAP))
+        check(abs(gap - CONFIG2_GAP) <= CONFIG2_GAP_ATOL and sk >= 0.0,
+              "config 2: gap of %d trials %.5f" % (trials, gap))
+    print("  first run: %d synchronising calls (torch.cuda sync debug "
+          "mode); %d Lloyd runs (the fit and 120 trials in batches), most "
+          "iterations per run %s" % (syncs, len(lloyd_calls), lloyd_calls))
+    check(abs(model.inertia_ / CONFIG2_INERTIA - 1.0) <= CONFIG2_INERTIA_RTOL,
+          "config 2: inertia %.1f" % model.inertia_)
+
+    # Lloyd in float64 from the same centroids, card against CPU.
+    rng = np.random.RandomState(0)
+    Xs = rng.standard_normal((600, 512))
+    C0 = Xs[rng.choice(600, CONFIG2_K, replace=False)]
+    tol = 1e-4 * float(np.var(Xs, axis=0).mean())
+    out = {dev: [t.cpu() for t in real_lloyd(
+        torch.as_tensor(Xs, device=dev), torch.as_tensor(C0, device=dev),
+        300, tol)] for dev in ("cuda", "cpu")}
+    (C_d, lab_d, in_d, it_d), (C_c, lab_c, in_c, it_c) = out["cuda"], \
+        out["cpu"]
+    dc = float((C_d - C_c).abs().max())
+    print("  _lloyd float64 (600, 512, 4), card vs CPU: labels equal %s, "
+          "n_iter %d / %d, max|dC| %.2e, inertia rel diff %.2e"
+          % (bool(torch.equal(lab_d, lab_c)), int(it_d), int(it_c), dc,
+             float(in_d / in_c - 1.0)))
+    check(torch.equal(lab_d, lab_c) and int(it_d) == int(it_c)
+          and dc <= 1e-10, "Lloyd float64: card and CPU differ")
+    return {"config 2 k-means fit + gaps": launches}
+
+
+def phase_kmeans_sweep(X_host, card):
+    """``kmeans_model_selection_sweep`` on config 2's data, k = 2..6."""
+    import torch
+    from convex_dim_red_tpu_torch.parallel import (
+        kmeans_model_selection_sweep)
+    X = torch.as_tensor(X_host, device=DEVICE)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = kmeans_model_selection_sweep(X, range(2, 7), 0, n_init=10,
+                                       n_trials=20)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    rows = ["k=%d %.3f s inertia %.1f gap %.5f sk %.2e n_iter %d"
+            % (k, r['elapsed'], r['cost'], r['gap'], r['gap_sk'],
+               r['n_iter']) for k, r in sorted(res.items())]
+    print("  k-means sweep k=2..6, best of 10, 20 trials: %.3f s in all; "
+          "%s; on %s" % (wall, "; ".join(rows), card))
+    costs = [res[k]['cost'] for k in range(2, 7)]
+    check(all(b < a for a, b in zip(costs, costs[1:])),
+          "k-means sweep: inertia does not fall with k: %s" % costs)
+    check(all(np.isfinite([res[k]['gap'], res[k]['gap_sk']]).all()
+              for k in res), "k-means sweep: non-finite gap")
+    check(sum(launches.values()) == 0, "k-means sweep launched %s"
+          % launches)
+    return {"k-means sweep k=2..6": launches}
+
+
+def synthetic_hadisst(start_year, n_years, n_lat, n_lon, land_frac, seed):
+    """bin/make_synthetic_hadisst.py's field, in numpy (that script
+    imports the JAX package): ``(sst float32 (t, lat, lon), time in days
+    since start_year-1-1, lats, lons)``."""
+    from scipy.ndimage import gaussian_filter
+    rng = np.random.RandomState(seed)
+    n_t = n_years * 12
+    lats = np.linspace(89.5, -89.5, n_lat)
+    lons = np.linspace(-179.5, 179.5, n_lon)
+    t = np.arange(n_t)
+    month = t % 12
+    seasonal = (np.cos(2 * np.pi * (month[:, None] - 1) / 12)[..., None]
+                * np.sign(lats)[None, :, None]
+                * (np.abs(lats) / 90.0)[None, :, None]
+                * np.ones(n_lon)[None, None, :]) * 5.0
+    trend = 0.8 * (t / n_t)[:, None, None]
+    base = 20.0 * np.cos(np.deg2rad(lats))[None, :, None]
+    k = 5
+    modes = rng.standard_normal((k, n_lat, n_lon))
+    modes = np.stack([gaussian_filter(m, sigma=8) for m in modes])
+    pcs = rng.standard_normal((n_t, k)) * np.array([3, 2, 1.5, 1, 0.8])
+    anom = np.tensordot(pcs, modes, axes=(1, 0))
+    noise = 0.2 * rng.standard_normal((n_t, n_lat, n_lon))
+    sst = base + seasonal + trend + anom + noise
+    land = gaussian_filter(rng.standard_normal((n_lat, n_lon)), sigma=6)
+    sst[:, land > np.quantile(land, 1 - land_frac)] = np.nan
+    time_days = np.round(np.arange(n_t) * 30.4375).astype('f8')
+    return sst.astype('f4'), time_days, lats, lons
+
+
+def hadisst_case_study_data():
+    """The synthetic HadISST field through the port's pipelines, as the
+    anomalies CLI and the hadisst drivers take it: anomalies (base
+    period 1981-2010, trend order 1), the HADISST spec's year and
+    latitude filters, scos weights, flatten, missing mask, 0.1
+    chronological split; the samples in float64, as the anomalies CLI
+    writes them and a driver reads them."""
+    from convex_dim_red_tpu_torch.cli.specs import HADISST
+    from convex_dim_red_tpu_torch.pipelines import preprocess as pp
+    from convex_dim_red_tpu_torch.pipelines.dataset import (
+        Dataset, Variable, decode_cf_time)
+    t0 = time.perf_counter()
+    sst, time_days, lats, lons = synthetic_hadisst(**HADISST_SYNTHETIC)
+    coords = {
+        'time': Variable(('time',), time_days,
+                         {'units': 'days since %d-1-1'
+                          % HADISST_SYNTHETIC['start_year']}),
+        'latitude': Variable(('latitude',), lats),
+        'longitude': Variable(('longitude',), lons)}
+    years, _ = decode_cf_time(coords['time'])
+    data = np.asarray(sst, dtype=float)
+    data = np.where(data <= -1000.0, np.nan, data)  # the CLI's ice flag
+    generated = time.perf_counter() - t0
+    anomalies = pp.calculate_monthly_anomalies(
+        data, years, period=12, trend_order=1,
+        base_period_start_year=BASE_PERIOD[0],
+        base_period_end_year=BASE_PERIOD[1])[0]
+    ds = Dataset({HADISST.var_name: Variable(
+        ('time', 'latitude', 'longitude'), anomalies)}, coords)
+    ds = ds.sel_time_years(HADISST.time_name, HADISST.start_year,
+                           HADISST.end_year)
+    ds = ds.sel_range(HADISST.lat_name, HADISST.min_latitude,
+                      HADISST.max_latitude)
+    weights = pp.latitude_weights(ds.coords[HADISST.lat_name].data,
+                                  HADISST.default_lat_weights)
+    flat = pp.weight_and_flatten(ds[HADISST.var_name].data,
+                                 weights[:, None])
+    missing = pp.missing_feature_mask(flat)
+    valid = flat[:, ~missing]
+    train, val, n_train = pp.train_validation_split(
+        valid, validation_frac=HADISST.validation_frac)
+    grid = list(ds[HADISST.var_name].data.shape[1:])
+    print("  synthetic HadISST %s: generated in %.1f s, anomalies and "
+          "preparation %.1f s on the host; band %s, %d sea points of %d, "
+          "%d training and %d held-out months"
+          % (sst.shape, generated, time.perf_counter() - t0 - generated,
+             grid, valid.shape[1], missing.size, n_train, val.shape[0]))
+    return dict(train=train, val=val, missing=missing, grid=grid,
+                time=ds.coords['time'],
+                coords={name: ds.coords[name] for name in
+                        (HADISST.lat_name, 'longitude')})
+
+
+def check_analysis(name, attrs, out, pattern_name, missing, audit, cost):
+    """The attrs finite, 178 held-out samples, the training cost's
+    float64 audit within 1e-4, the patterns NaN exactly on the mask."""
+    for key, value in attrs.items():
+        try:
+            number = float(value)
+        except ValueError:
+            continue  # init, reference
+        check(np.isfinite(number), "%s: attr %s is %s" % (name, key, value))
+    check(attrs['test_set_size'] == '178', "%s: test_set_size %s"
+          % (name, attrs['test_set_size']))
+    rel = abs(audit / cost - 1.0)
+    check(rel <= 1e-4, "%s: float64 audit %.6f vs cost %.6f" % (name, audit,
+                                                                 cost))
+    patterns = out[pattern_name].data
+    nan = np.isnan(patterns.reshape(patterns.shape[0], -1))
+    check(bool((nan == missing[None, :]).all()),
+          "%s: patterns NaN off the land mask" % name)
+    return rel
+
+
+def hold_path_qp(name, kernel, plain, operands):
+    """``kernel`` against ``plain`` on the operands a path gave it, on the
+    card: in float64 row by row (objective gap 1e-8, as phase 17), and in
+    float32 row by row, where at most ``PATH_F32_ROWS`` of the rows may
+    be apart by more than 1e-5 in objective and the summed objective must
+    be within ``PATH_F32_SUM`` of the float64 solve's.  Returns the shape
+    and both max|dx|."""
+    import torch
+    A, B, X0, kw = operands
+    kw = dict(kw)
+    qp = dict(projection=kw.pop("projection"), mask=kw.pop("mask"), **kw)
+    shape = (1,) * (3 - B.ndim) + tuple(B.shape)
+    label = "%s (%d, %d, %d)" % ((name,) + shape)
+    err64 = compare_qp(label + " f64", A.double(), B.double(), X0.double(),
+                       tol_obj=1e-8, kernel=kernel, plain=plain, **qp)
+    got = kernel(A, B, X0, **qp)
+    want = plain(A, B, X0, **qp)
+    solved = plain(A.double(), B.double(), X0.double(), **qp)
+    As, Bs = (t if t.ndim == 3 else t[None] for t in (A, B))
+    f = {key: qp_objective(x if x.ndim == 3 else x[None], As, Bs)
+         for key, x in (("kernel", got), ("plain", want), ("f64", solved))}
+    gap = np.abs(f["kernel"] - f["plain"]) / (1.0 + np.abs(f["plain"]))
+    apart = int(np.sum(gap > 1e-5))
+    total = {key: float(np.sum(v)) for key, v in f.items()}
+    rel = {key: total[key] / total["f64"] - 1.0 for key in ("kernel", "plain")}
+    dx = float((got - want).abs().max())
+    feas = float((got.double().sum(dim=-1) - 1.0).abs().max())
+    print("  %s f32: max|dx| %.3e, |sum-1| %.3e, rows apart by > 1e-5 %d of "
+          "%d (most %.3e); summed objective against the float64 solve: "
+          "kernel %.2e, plain %.2e"
+          % (label, dx, feas, apart, gap.size, float(gap.max()),
+             rel["kernel"], rel["plain"]))
+    check(bool(torch.isfinite(got).all()) and float(got.min()) >= 0.0
+          and feas <= 1e-5, label + " f32: rows off the simplex")
+    check(apart <= PATH_F32_ROWS * gap.size, "%s f32: %d rows of %d apart "
+          "from the plain version" % (label, apart, gap.size))
+    check(abs(rel["kernel"]) <= PATH_F32_SUM, "%s f32: summed objective "
+          "%.2e from the float64 solve's" % (label, rel["kernel"]))
+    return dict(R=shape[0], n=shape[1], k=shape[2], max_abs_err=dx,
+                max_abs_err_f64=err64)
+
+
+def phase_case_study(card):
+    """kmeans_analysis, aa_analysis, pca_analysis and gpnh_analysis on
+    the synthetic HadISST anomalies, as the drivers call them (float64
+    host arrays, ``device='cuda'``), each then build_output_dataset; K1
+    and K2 held to their plain versions on the operands the AA and GPNH
+    analyses gave them."""
+    import torch
+    from convex_dim_red_tpu_torch.cli import common
+    from convex_dim_red_tpu_torch.ops import simplex_qp as sq
+    from convex_dim_red_tpu_torch.parallel.restarts import _ONE_SHOT_ROUND
+    from convex_dim_red_tpu_torch.pipelines import preprocess as pp
+    d = hadisst_case_study_data()
+    train, val, missing, grid = d['train'], d['val'], d['missing'], d['grid']
+    # The analyses fit in float32 (torch's default dtype): the float64
+    # audits take the data as the fit saw it.
+    X64 = train.astype(np.float32).astype(np.float64)
+    paths, held = {}, {}
+    k1 = {K1_WRAPPER: (0, _ONE_SHOT_ROUND)}
+    k2_plain = _one_group(sq.quad_simplex_qp_packed_grouped_reference)
+
+    def output(weights, patterns, attrs, name, n_components=CASE_STUDY_K,
+               cost_deltas=None, dictionary=None, coords=d['coords'],
+               dims=('latitude', 'longitude'), shape=grid, mask=missing):
+        return common.build_output_dataset(
+            weights=weights, dictionary_over_samples=dictionary,
+            patterns=patterns, cost_deltas=cost_deltas,
+            time_values=d['time'].data, time_name='time',
+            time_attrs=d['time'].attrs, feature_dims=list(dims),
+            feature_shape=list(shape), feature_coords=coords,
+            missing_mask=mask, n_components=n_components, attrs=attrs,
+            pattern_name=name)
+
+    def run(label, call):
+        reset_launches()
+        t0 = time.perf_counter()
+        result, calls = recording_schedules(call)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        paths[label] = launches
+        return result, wall, launches, scheduled_launches(calls)
+
+    def hold(name, kernel, plain, captured, wrapper, calls):
+        check(sorted(captured[wrapper]) == list(calls),
+              "%s: launches %s recorded, not %s"
+              % (name, sorted(captured[wrapper]), list(calls)))
+        for call, operands in sorted(captured[wrapper].items()):
+            held["%s, launch %d" % (name, call)] = hold_path_qp(
+                "%s launch %d" % (name, call), kernel, plain, operands)
+
+    # k-means at bin/run_hadisst_kmeans_wrapper.sh's settings.
+    (model, onehot, attrs), wall, launches, _ = run(
+        "HadISST k-means analysis (k=4, best of 100, 100 trials)",
+        lambda: common.kmeans_analysis(
+            train, val, n_components=CASE_STUDY_K, n_init=100,
+            max_iterations=10000, n_trials=100, reference='uniform',
+            random_seed=0, init='k-means++', tolerance=1e-4, device=DEVICE))
+    check(sum(launches.values()) == 0, "k-means analysis: %s" % launches)
+    check(model.cluster_centers_.dtype == torch.float32,
+          "k-means analysis fitted in %s" % model.cluster_centers_.dtype)
+    centres = model.cluster_centers_.double().cpu().numpy()
+    audit = float(np.sum((X64 - centres[model.labels_]) ** 2))
+    out = output(onehot, model.cluster_centers_, attrs, 'centroids')
+    rel = check_analysis("k-means", attrs, out, 'centroids', missing,
+                         audit, model.inertia_)
+    print("  kmeans_analysis (k=4, n_init=100, 100 trials, max 10000 "
+          "iterations): %.3f s, inertia %.1f (float64 audit rel diff "
+          "%.1e), test inertia %s, gap %s, sk %s, n_iter %s, on %s"
+          % (wall, model.inertia_, rel, attrs['test_set_inertia'].strip(),
+             attrs['gap_statistic'].strip(), attrs['gap_sk'].strip(),
+             attrs['n_iter'], card))
+
+    # AA at the hadisst_aa driver's solver settings and its wrapper's.
+    label = "HadISST AA analysis (k=4, best of 100)"
+    ((best, attrs), captured), wall, launches, k1_used = run(
+        label, lambda: capture_operands(lambda: common.aa_analysis(
+            train, val, n_components=CASE_STUDY_K, delta=0.0,
+            init='random', n_init=100, tolerance=1e-4, max_iterations=10000,
+            random_seed=0, dictionary_solver_kwargs={'max_iterations': 1},
+            stopping_criterion='abs_delta_f', device=DEVICE),
+            dict(k1, **{K2_WRAPPER: (0,)})))
+    check(launches == dict(K1=k1_used, K2=1, K3=0, K4=0),
+          "AA analysis: launches %s, expected %d of K1 and one K2"
+          % (launches, k1_used))
+    check(best['weights'].dtype == torch.float32,
+          "AA analysis fitted in %s" % best['weights'].dtype)
+    out = output(best['weights'], best['archetypes'], attrs, 'archetypes',
+                 cost_deltas=best['cost_deltas'],
+                 dictionary=best['dictionary'])
+    rel = check_analysis("AA", attrs, out, 'archetypes', missing,
+                         audit_cost_f64(best, X64), best['cost'])
+    print("  aa_analysis (k=4, n_init=100, tolerance 1e-4 abs_delta_f, "
+          "dictionary capped at 1, max_iterations 10000): %.3f s, %d K1 + "
+          "%d K2 launches, n_iter %d, n_iters mean %.1f max %d (%d restarts "
+          "at the cap), cost %.4f (float64 audit rel diff %.1e), test cost "
+          "%s, on %s"
+          % (wall, launches["K1"], launches["K2"], best['n_iter'],
+             float(np.mean(best['n_iters'])), int(np.max(best['n_iters'])),
+             int(np.sum(best['n_iters'] >= 10000)), best['cost'], rel,
+             attrs['test_set_cost'].strip(), card))
+    hold("K1 HadISST AA", sq.quad_simplex_qp_packed_grouped,
+         sq.quad_simplex_qp_packed_grouped_reference, captured, K1_WRAPPER,
+         k1[K1_WRAPPER])
+    hold("K2 HadISST AA transform", sq.quad_simplex_qp_packed, k2_plain,
+         captured, K2_WRAPPER, (0,))
+
+    # PCA with 20 components, then GPNH on its PCs.
+    (result, attrs), wall, launches, _ = run(
+        "HadISST PCA(20) analysis", lambda: common.pca_analysis(
+            train, val, n_components=CASE_STUDY_PCS, tolerance=1e-8,
+            device=DEVICE))
+    check(sum(launches.values()) == 0, "PCA analysis: %s" % launches)
+    pcs, eofs = result['pcs'], result['eofs']
+    resid = X64 - pcs[:len(train)] @ eofs.astype(np.float64)
+    out = output(pcs[:len(train)], eofs, attrs, 'EOFs',
+                 n_components=CASE_STUDY_PCS)
+    rel = check_analysis("PCA", attrs, out, 'EOFs', missing,
+                         0.5 * float(np.sum(resid ** 2)) / len(train),
+                         float(attrs['training_set_cost']))
+    print("  pca_analysis (20 components): %.3f s, explained variance ratio "
+          "%.4f, training cost %s (float64 audit rel diff %.1e), test cost "
+          "%s, on %s" % (wall, float(np.sum(result['explained_variance_'
+                                                   'ratio'])),
+                         attrs['training_set_cost'].strip(), rel,
+                         attrs['test_set_cost'].strip(), card))
+
+    # The PCs as the PCA driver writes them (float64, every month).
+    pc_train, pc_val, _ = pp.train_validation_split(pcs, validation_frac=0.1)
+    fits = []
+    real_fit = common.gpnh_fit_restarts
+
+    def keeping(*args, **kwargs):
+        fits.append(real_fit(*args, **kwargs))
+        return fits[-1]
+
+    common.gpnh_fit_restarts = keeping
+    try:
+        ((model, attrs), captured), wall, launches, k1_used = run(
+            "PCs GPNH analysis (k=4, best of 100)",
+            lambda: capture_operands(lambda: common.gpnh_analysis(
+                pc_train, pc_val, n_components=CASE_STUDY_K, lambda_W=1e-3,
+                init='random', n_init=100, tolerance=1e-6,
+                max_iterations=10000, random_seed=0,
+                weights_solver_kwargs={'max_iterations': 1},
+                stopping_criterion='rel_delta_f', device=DEVICE), k1))
+    finally:
+        common.gpnh_fit_restarts = real_fit
+    check(launches == dict(K1=k1_used, K2=0, K3=0, K4=0),
+          "GPNH analysis: launches %s, expected %d of K1"
+          % (launches, k1_used))
+    won = fits[-1]
+    out = output(won['weights'], won['dictionary'].T, attrs, 'dictionary',
+                 cost_deltas=won['cost_deltas'], coords={}, dims=('mode',),
+                 shape=[CASE_STUDY_PCS],
+                 mask=np.zeros(CASE_STUDY_PCS, bool))
+    rel = check_analysis("GPNH", attrs, out, 'dictionary',
+                         np.zeros(CASE_STUDY_PCS, bool),
+                         gpnh_audit(won, pc_train.astype(np.float32)),
+                         won['cost'])
+    print("  gpnh_analysis on the PCs (k=4, lambda_W 1e-3, n_init=100, "
+          "rel_delta_f 1e-6, weights QP capped at 1): %.3f s, %d K1 "
+          "launches, n_iter %d, n_iters mean %.1f max %d, cost %.6f (float64 "
+          "audit rel diff %.1e), test cost %s, on %s"
+          % (wall, launches["K1"], won['n_iter'],
+             float(np.mean(won['n_iters'])), int(np.max(won['n_iters'])),
+             won['cost'], rel, attrs['test_set_cost'].strip(), card))
+    hold("K1 PCs GPNH", sq.quad_simplex_qp_packed_grouped,
+         sq.quad_simplex_qp_packed_grouped_reference, captured, K1_WRAPPER,
+         k1[K1_WRAPPER])
+    return paths, held
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_device()
     import torch
+
     def phase(name):
-        print("== %s (at %.1f s)" % (name, time.perf_counter() - t_start))
+        print("== %s (at %.1f s)" % (name, time.perf_counter() - t_start),
+              flush=True)
 
     phase("build")
     phase_build()
@@ -1817,6 +2331,16 @@ def main():
     paths.update(sweep_paths)
     phase("GPNH screened, padded and swept, config 4")
     paths.update(phase_gpnh_screened_padded(pcs, pcs_host, card))
+    phase("k-means and the gap statistic, config 2")
+    paths.update(phase_config2(X_host, card))
+    phase("k-means model-selection sweep, config 2's data")
+    paths.update(phase_kmeans_sweep(X_host, card))
+    phase("HadISST case-study analyses, full size")
+    case_paths, held = phase_case_study(card)
+    paths.update(case_paths)
+    for key, entry in held.items():  # "K1 HadISST AA, launch 0": ...
+        kernels[key[:2]].setdefault("case_study_shapes", {})[
+            key[3:]] = entry
     print("all phases passed in %.1f s" % (time.perf_counter() - t_start))
     print(card)
     by_path = {key: {path: counts[key] for path, counts in paths.items()

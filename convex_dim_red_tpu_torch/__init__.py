@@ -8,17 +8,21 @@ Pallas TPU kernel with a kernel written by hand for NVIDIA Hopper
 (ROADMAP.md, queue 1): archetypal analysis (the ``ArchetypalAnalysis``
 and ``KernelAA`` estimators with ``transform``, and the best-of-N fit
 ``aa_fit_restarts``, and ``kernel_aa_fit_restarts`` on a kernel), GPNH
-convex coding (``GPNHConvexCoding`` and ``gpnh_fit_restarts``), the AA
-and GPNH model-selection sweeps (``parallel.sweep``), ``PCA``,
-FurthestSum, and the SPG solvers they run.  The best-of-N fits run
-under convergence compaction, in rounds of 32 iterations by default
-(``compact_iterations=None``, the JAX package's one-shot default, whose
-results they give), or screened (``screen_iterations``), at ``k`` or
-padded (``pad_components_to``).  It never imports JAX.
+convex coding (``GPNHConvexCoding`` and ``gpnh_fit_restarts``), the AA,
+GPNH and k-means model-selection sweeps (``parallel.sweep``), ``PCA``,
+``KMeans`` with ``gap_statistic``, FurthestSum, the SPG solvers they
+run, the case-study pipelines (``pipelines``) and drivers (``cli``:
+``python -m convex_dim_red_tpu_torch.cli.drivers <name> ...``).  The
+best-of-N fits run under convergence compaction, in rounds of 32
+iterations by default (``compact_iterations=None``, the JAX package's
+one-shot default, whose results they give), or screened
+(``screen_iterations``), at ``k`` or padded (``pad_components_to``).
+It never imports JAX.
 """
 
 from .models.archetypal_analysis import ArchetypalAnalysis, KernelAA
 from .models.gpnh_convex_coding import GPNHConvexCoding
+from .models.kmeans import KMeans, gap_statistic, kmeans_fit
 from .models.pca import PCA
 from .ops.furthest_sum import furthest_sum, furthest_sum_device
 from .ops.simplex_projection import (
@@ -45,6 +49,9 @@ __all__ = [
     "ArchetypalAnalysis",
     "KernelAA",
     "GPNHConvexCoding",
+    "KMeans",
+    "kmeans_fit",
+    "gap_statistic",
     "PCA",
     "furthest_sum",
     "furthest_sum_device",

@@ -150,6 +150,16 @@ def _as_generator(random_state):
     return torch.Generator().manual_seed(seed)
 
 
+def _generator_on(random_state, device):
+    """A ``torch.Generator`` as given, or one on ``device`` seeded from
+    ``random_state`` (an integer, None or a ``numpy.random.RandomState``,
+    read as :func:`_as_generator` reads it)."""
+    if isinstance(random_state, torch.Generator):
+        return random_state
+    seed = _as_generator(random_state).initial_seed()
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def _reject_mesh(mesh):
     if mesh is not None:
         raise ValueError("mesh= is not ported yet (ROADMAP.md queue 1, "

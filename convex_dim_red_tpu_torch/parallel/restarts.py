@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from ..models._common import (QPSolverConfig, SPGSolverConfig,
-                              STOPPING_CRITERIA, _reject_mesh, make_config)
+                              STOPPING_CRITERIA, _generator_on,
+                              _reject_mesh, make_config)
 from ..models.archetypal_analysis import (_cost_from_parts, _scalar_dtype,
                                           _spg_cfg_to_quad_kwargs)
 from ..models.gpnh_convex_coding import (_SCALAR_DTYPE as _GPNH_SDT,
@@ -512,14 +513,6 @@ def _round_iterations(compact_iterations):
     return int(compact_iterations)
 
 
-def _as_restart_generator(generator, device):
-    """A ``torch.Generator`` as given, or one on ``device`` seeded with
-    the integer ``generator``."""
-    if isinstance(generator, torch.Generator):
-        return generator
-    return torch.Generator(device=device).manual_seed(int(generator))
-
-
 def _schedule(compacted, screened, *, compact_iterations,
               screen_iterations, screen_keep, screen_margin):
     """Run the scheduler the arguments select: ``screened(**kw)`` with
@@ -546,7 +539,7 @@ def _aa_restarts(X, gram, n_components, generator, n_init, *, has_data,
     the kernel).  Returns ``(Z, C, alpha, out)``: the winner's factors
     sliced back to ``n_components`` and the result dict's scalars and
     per-restart arrays."""
-    generator = _as_restart_generator(generator, X.device)
+    generator = _generator_on(generator, X.device)
     k_out = int(n_components)
     k_fit, component_mask = _padded_components(k_out, pad_components_to)
 
@@ -948,7 +941,7 @@ def gpnh_fit_restarts(data, n_components, generator, n_init, lambda_W=0.0,
             "'furthest_sum' (the reference drivers' choices)")
 
     X = as_input(data, device)
-    generator = _as_restart_generator(generator, X.device)
+    generator = _generator_on(generator, X.device)
     k_out = int(n_components)
     k_fit, component_mask = _padded_components(k_out, pad_components_to)
     weights_cfg = make_config(QPSolverConfig, weights_solver_kwargs)

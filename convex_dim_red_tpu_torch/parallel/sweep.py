@@ -1,18 +1,20 @@
 """Model-selection sweeps: best-of-``n_init`` fits for every ``k``.
 
-Port of the AA and GPNH sweeps of convex_dim_red_tpu/parallel/sweep.py
-(the k-means sweep waits for the k-means port, ROADMAP.md queue 1,
-item 15).  Each ``k`` is one :func:`~.restarts.aa_fit_restarts` or
+Port of convex_dim_red_tpu/parallel/sweep.py.  Each ``k`` of the AA
+and GPNH sweeps is one :func:`~.restarts.aa_fit_restarts` or
 :func:`~.restarts.gpnh_fit_restarts` call; ``component_bucket`` rounds
 ``k`` up to a multiple of the bucket and runs the fit padded, with a
 mask pinning the padded components to zero, so every result is a true
 ``k``-component fit.  The JAX package pads so that a bucket of ``k``
 shares one compiled program; the port compiles nothing per ``k``, so
 padding changes only the restarts' initial draws and the width of the
-work, and stays off by default, as in the JAX package.
+work, and stays off by default, as in the JAX package.  Each ``k`` of
+the k-means sweep is a :class:`~..models.kmeans.KMeans` fit and its
+:func:`~..models.kmeans.gap_statistic`.
 
-The sweep draws one sub-seed per ``k`` from ``seed`` (an integer or a
-``torch.Generator``) whether or not that ``k`` is loaded from a
+The sweeps draw sub-seeds per ``k`` from ``seed`` (an integer or a
+``torch.Generator``), one for an AA or GPNH fit, one for the k-means
+fit and one for its gap, whether or not that ``k`` is loaded from a
 checkpoint, so a resumed sweep computes what an uninterrupted one does.
 """
 
@@ -24,11 +26,14 @@ import warnings
 import numpy as np
 import torch
 
+from ..models._common import _reject_mesh
+from ..models.kmeans import KMeans, gap_statistic
 from ..utils.precision import matmul_precision_scope
 from ..utils.validation import _host, as_input
 from .restarts import aa_fit_restarts, gpnh_fit_restarts
 
-__all__ = ["aa_model_selection_sweep", "gpnh_model_selection_sweep"]
+__all__ = ["aa_model_selection_sweep", "gpnh_model_selection_sweep",
+           "kmeans_model_selection_sweep"]
 
 
 def _seed_fingerprint(seed):
@@ -97,38 +102,43 @@ def _pad_to(k, component_bucket):
     return -(-k // bucket) * bucket
 
 
-def _sweep(fit, data, ks, seed, params, checkpoint_dir, reconstruct,
-           device):
-    """The sweep loop: for each ``k`` a sub-seed, then the checkpoint or
-    ``fit(X, k, sub_seed, pad_to)``.  ``params`` make the checkpoints'
-    fingerprint; ``reconstruct(fit_result)`` gives the model's
-    reconstruction of ``X``, whose RMSE is computed on the device and
-    read once."""
+def _sweep(point, data, ks, seed, params, checkpoint_dir, device,
+           draws=1):
+    """The sweep loop: for each ``k`` ``draws`` sub-seeds, then the
+    checkpoint or ``point(X, k, *sub_seeds)``, the entry of that ``k``
+    to which the loop adds ``elapsed``, the point's wall time.
+    ``params`` make the checkpoints' fingerprint."""
     fp = _sweep_fingerprint(data, seed, params)
     X = as_input(data, device)
     seeds = _sub_seeds(seed)
     results = {}
     for k in ks:
         k = int(k)
-        sub = next(seeds)
+        subs = [next(seeds) for _ in range(draws)]
         done = _sweep_ckpt_load(checkpoint_dir, k, fp)
         if done is not None:
             results[k] = done
             continue
         start = time.perf_counter()
-        res = fit(X, k, sub, _pad_to(k, params['component_bucket']))
+        results[k] = point(X, k, *subs)
+        results[k]['elapsed'] = time.perf_counter() - start
+        _sweep_ckpt_save(checkpoint_dir, k, results[k], fp)
+    return results
+
+
+def _fit_point(fit, reconstruct, component_bucket):
+    """The point of an AA or GPNH sweep: ``fit(X, k, sub_seed, pad_to)``
+    and the RMSE of ``reconstruct(fit_result)`` against ``X``, computed
+    on the device and read once."""
+    def point(X, k, sub):
+        res = fit(X, k, sub, _pad_to(k, component_bucket))
         with matmul_precision_scope():
             rmse = float(torch.sqrt(torch.mean((reconstruct(res) - X)
                                                ** 2)))
-        results[k] = {
-            'cost': res['cost'],
-            'rmse': rmse,
-            'n_iter': res['n_iter'],
-            'elapsed': time.perf_counter() - start,
-            'costs': np.asarray(res['costs']),
-        }
-        _sweep_ckpt_save(checkpoint_dir, k, results[k], fp)
-    return results
+        return {'cost': res['cost'], 'rmse': rmse, 'n_iter': res['n_iter'],
+                'costs': np.asarray(res['costs'])}
+
+    return point
 
 
 def aa_model_selection_sweep(data, ks, seed, n_init=50, delta=0.0,
@@ -173,8 +183,9 @@ def aa_model_selection_sweep(data, ks, seed, n_init=50, delta=0.0,
             restart_chunk=restart_chunk, pad_components_to=pad_to,
             **solver_kwargs)
 
-    return _sweep(fit, data, ks, seed, params, checkpoint_dir,
-                  lambda res: res['weights'] @ res['archetypes'], device)
+    return _sweep(_fit_point(fit, lambda res: res['weights']
+                             @ res['archetypes'], component_bucket),
+                  data, ks, seed, params, checkpoint_dir, device)
 
 
 def gpnh_model_selection_sweep(data, ks, seed, n_init=50, lambda_W=0.0,
@@ -206,5 +217,40 @@ def gpnh_model_selection_sweep(data, ks, seed, n_init=50, lambda_W=0.0,
             restart_chunk=restart_chunk, pad_components_to=pad_to,
             **solver_kwargs)
 
-    return _sweep(fit, data, ks, seed, params, checkpoint_dir,
-                  lambda res: res['weights'] @ res['dictionary'].T, device)
+    return _sweep(_fit_point(fit, lambda res: res['weights']
+                             @ res['dictionary'].T, component_bucket),
+                  data, ks, seed, params, checkpoint_dir, device)
+
+
+def kmeans_model_selection_sweep(data, ks, seed, n_init=10, n_trials=100,
+                                 reference='uniform', max_iter=300,
+                                 mesh=None, checkpoint_dir=None,
+                                 device=None):
+    """K-means and the gap statistic for every ``k`` in ``ks`` (the
+    reference's gap-based model selection, kmeans.py:81-108 and its
+    notebooks).
+
+    Each ``k`` draws two sub-seeds from ``seed``: the
+    :class:`~..models.kmeans.KMeans` fit's (best of ``n_init``, at most
+    ``max_iter`` iterations) and its :func:`~..models.kmeans.
+    gap_statistic`'s (``n_trials`` draws from ``reference``).
+    ``data``, ``device`` and ``checkpoint_dir`` are as in
+    :func:`aa_model_selection_sweep`; ``mesh`` raises.
+
+    Returns ``{k: {'cost', 'gap', 'gap_sk', 'n_iter', 'elapsed'}}``,
+    ``cost`` the fit's inertia.
+    """
+    _reject_mesh(mesh)
+    params = dict(n_init=n_init, n_trials=n_trials, reference=reference,
+                  max_iter=max_iter)
+
+    def point(X, k, fit_seed, gap_seed):
+        model = KMeans(n_clusters=k, n_init=n_init, max_iter=max_iter,
+                       random_state=fit_seed).fit(X)
+        gap, sk = gap_statistic(X, model.inertia_, k, n_trials=n_trials,
+                                reference=reference, random_state=gap_seed)
+        return {'cost': model.inertia_, 'gap': gap, 'gap_sk': sk,
+                'n_iter': model.n_iter_}
+
+    return _sweep(point, data, ks, seed, params, checkpoint_dir, device,
+                  draws=2)

@@ -9,7 +9,8 @@ state (:func:`estimator_state_from_numpy`), GPNH restart states
 (:func:`gpnh_estimator_state_from_numpy`); or both transform against
 the same factors: a fitted AA estimator's
 (:func:`load_fitted_estimator`), ``GPNHConvexCoding``'s
-(:func:`load_fitted_gpnh`) or ``PCA``'s (:func:`load_fitted_pca`).
+(:func:`load_fitted_gpnh`), ``PCA``'s (:func:`load_fitted_pca`) or
+``KMeans``' (:func:`load_fitted_kmeans`).
 Solver configs need no conversion: the port's ``make_config`` takes the
 same kwargs dicts.
 """
@@ -19,7 +20,8 @@ import torch
 
 __all__ = ["states_from_numpy", "estimator_state_from_numpy",
            "gpnh_states_from_numpy", "gpnh_estimator_state_from_numpy",
-           "load_fitted_estimator", "load_fitted_gpnh", "load_fitted_pca"]
+           "load_fitted_estimator", "load_fitted_gpnh", "load_fitted_pca",
+           "load_fitted_kmeans"]
 
 
 def states_from_numpy(Z, C, alpha, device, dtype):
@@ -103,4 +105,14 @@ def load_fitted_pca(port_model, components, mean, explained_variance,
         torch.as_tensor(np.array(a), device=device)
         for a in (components, mean))
     port_model.explained_variance_ = np.array(explained_variance)
+    return port_model
+
+
+def load_fitted_kmeans(port_model, cluster_centers, device="cpu"):
+    """Set a port ``KMeans``' ``cluster_centers_`` (a tensor on
+    ``device``, in the array's dtype) from another fit's centres, so
+    that both predict and transform against the same centres.  Returns
+    ``port_model``."""
+    port_model.cluster_centers_ = torch.as_tensor(np.array(cluster_centers),
+                                                  device=device)
     return port_model

@@ -4,7 +4,9 @@ card: K1 and K2 (csrc/simplex_qp.cu), K3 and K4
 rows (the same bits whatever warp solves a row); then the paths that
 run them against the CPU: a GPNH fit on K2, PCA, the restart fits'
 default rounds (``compact_iterations=None``) against shorter ones for
-AA and GPNH (K1), and padded (masked K1) and screened restart fits.
+AA and GPNH (K1), and padded (masked K1) and screened restart fits;
+k-means' Lloyd iterations against the CPU, and the case-study drivers'
+transform on K2.
 
 Marked ``cuda``: the kernel has no CPU mode, so these tests skip where
 no CUDA device is found.  tests/conftest.py imports JAX, which a GPU
@@ -587,3 +589,40 @@ def test_screened_fit_on_card_matches_cpu(cuda):
     assert card["screen"]["n_kept"] == cpu["screen"]["n_kept"] == 4
     assert card["screen"]["screen_cut"] == pytest.approx(
         cpu["screen"]["screen_cut"], rel=1e-6)
+
+
+def test_lloyd_on_card_matches_cpu(cuda):
+    """Float64 Lloyd from the same centroids on the card and on the CPU:
+    equal labels and ``n_iter``, centroids and inertia to rounding."""
+    from convex_dim_red_tpu_torch.models import kmeans
+    rng = np.random.RandomState(0)
+    X = rng.standard_normal((600, 512))
+    C0 = X[rng.choice(600, 4, replace=False)]
+    tol = 1e-4 * float(np.var(X, axis=0).mean())
+    out = {dev: kmeans._lloyd(torch.as_tensor(X, device=dev),
+                              torch.as_tensor(C0, device=dev), 300, tol)
+           for dev in (cuda, "cpu")}
+    (C_d, lab_d, inert_d, it_d), (C_c, lab_c, inert_c, it_c) = (
+        [t.cpu() for t in out[dev]] for dev in (cuda, "cpu"))
+    assert torch.equal(lab_d, lab_c)
+    assert int(it_d) == int(it_c)
+    torch.testing.assert_close(C_d, C_c, rtol=0, atol=1e-10)
+    assert float(inert_d) == pytest.approx(float(inert_c), rel=1e-10)
+
+
+def test_aa_transform_on_card_runs_k2(cuda):
+    from convex_dim_red_tpu_torch.cli import common
+    from convex_dim_red_tpu_torch.models._common import (QPSolverConfig,
+                                                         make_config)
+    rng = np.random.RandomState(1)
+    arch = torch.as_tensor(rng.uniform(size=(4, 64)), device=cuda)
+    data = torch.as_tensor(rng.uniform(size=(300, 64)), device=cuda)
+    simplex_qp.PACKED_LAUNCHES = 0
+    Z, cost = common._aa_transform(arch, data, 0,
+                                   make_config(QPSolverConfig, None), 1000)
+    assert simplex_qp.PACKED_LAUNCHES == 1
+    Z_cpu, cost_cpu = common._aa_transform(
+        arch.cpu(), data.cpu(), 0, make_config(QPSolverConfig, None), 1000)
+    assert Z.device.type == "cuda"
+    # K2 and the CPU's row solver stop on different rules.
+    assert cost == pytest.approx(cost_cpu, rel=1e-6)

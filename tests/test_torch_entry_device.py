@@ -15,11 +15,17 @@ import pytest
 import torch
 
 from convex_dim_red_tpu_torch import (PCA, ArchetypalAnalysis,
-                                      GPNHConvexCoding, KernelAA)
+                                      GPNHConvexCoding, KernelAA, KMeans,
+                                      gap_statistic, kmeans_fit)
 from convex_dim_red_tpu_torch import (aa_fit_restarts, gpnh_fit_restarts,
                                       kernel_aa_fit_restarts)
+from convex_dim_red_tpu_torch.cli import common, drivers
+from convex_dim_red_tpu_torch.models.kmeans import kmeans_plusplus, random_init
 from convex_dim_red_tpu_torch.parallel import (aa_model_selection_sweep,
-                                               gpnh_model_selection_sweep)
+                                               gpnh_model_selection_sweep,
+                                               kmeans_model_selection_sweep)
+from convex_dim_red_tpu_torch.pipelines.dataset import (Dataset, Variable,
+                                                        open_dataset)
 from convex_dim_red_tpu_torch.ops import simplex_qp
 from convex_dim_red_tpu_torch.utils.validation import as_input
 
@@ -61,10 +67,22 @@ def _fitted_on_cpu():
     lambda X: kernel_aa_fit_restarts(X @ X.T, K, 0, 2, **RESTARTS),
     lambda X: aa_model_selection_sweep(X, [2, K], 0, **SWEEP),
     lambda X: gpnh_model_selection_sweep(X, [2, K], 0, n_init=2, **GPNH),
+    lambda X: KMeans(K, n_init=2).fit(X),
+    lambda X: kmeans_fit(X, 0, n_clusters=K, n_init=2),
+    lambda X: kmeans_plusplus(X, K, 0),
+    lambda X: random_init(X, K, 0),
+    lambda X: gap_statistic(X, 1.0, K, n_trials=2),
+    lambda X: kmeans_model_selection_sweep(X, [2], 0, n_init=2, n_trials=2),
+    lambda X: common.kmeans_analysis(X, None, n_components=K, n_init=2,
+                                     max_iterations=10, n_trials=2,
+                                     reference='uniform', random_seed=0),
+    lambda X: common.pca_analysis(X, None, n_components=K),
 ], ids=["aa_fit_restarts", "fit", "fit_transform", "KernelAA.fit",
         "transform", "gpnh_fit_restarts", "GPNHConvexCoding.fit",
         "PCA.fit", "kernel_aa_fit_restarts", "aa_model_selection_sweep",
-        "gpnh_model_selection_sweep"])
+        "gpnh_model_selection_sweep", "KMeans.fit", "kmeans_fit",
+        "kmeans_plusplus", "random_init", "gap_statistic",
+        "kmeans_model_selection_sweep", "kmeans_analysis", "pca_analysis"])
 def test_numpy_without_device_needs_the_card(no_cuda, call):
     with pytest.raises(RuntimeError, match=re.escape("device='cpu'")):
         call(_data())
@@ -142,6 +160,42 @@ def test_kernel_fit_and_sweeps_with_device_cpu_match_cpu_tensors(no_cuda):
         for k in (2, K):
             np.testing.assert_array_equal(got[k]['costs'], want[k]['costs'])
             assert got[k]['rmse'] == want[k]['rmse']
+
+
+def test_kmeans_with_device_cpu_matches_the_cpu_tensor_fit(no_cuda):
+    X = _data(7)
+    want = KMeans(K, n_init=3, random_state=0).fit(torch.as_tensor(X))
+    got = KMeans(K, n_init=3, random_state=0, device='cpu').fit(X)
+    assert got.cluster_centers_.device.type == "cpu"
+    assert got.inertia_ == want.inertia_
+    np.testing.assert_array_equal(got.labels_, want.labels_)
+    np.testing.assert_array_equal(got.predict(X), want.predict(X))
+    C, labels, inertia, n_iter = kmeans_fit(X, 0, n_clusters=K, n_init=3,
+                                            device='cpu')
+    C_t, labels_t, inertia_t, n_iter_t = kmeans_fit(
+        torch.as_tensor(X), 0, n_clusters=K, n_init=3)
+    assert C.device.type == "cpu" and torch.equal(C, C_t)
+    assert torch.equal(labels, labels_t) and inertia == inertia_t
+    assert n_iter == n_iter_t
+
+
+@pytest.mark.parametrize("platform", [[], ["--platform", "cuda"]])
+def test_driver_without_the_card_needs_platform_cpu(no_cuda, tmp_path,
+                                                    platform):
+    path, out = str(tmp_path / "in.nc"), str(tmp_path / "out.nc")
+    Dataset({'sst_anom': Variable(('time', 'latitude', 'longitude'),
+                                  _data(8).reshape(N, 2, 4))},
+            {'time': Variable(('time',), np.arange(N) * 30.5,
+                              {'units': 'days since 1990-1-1'}),
+             'latitude': Variable(('latitude',), np.array([-10.0, 10.0])),
+             'longitude': Variable(('longitude',), np.arange(4.0))}
+            ).to_netcdf(path)
+    argv = ['hadisst_kmeans', path, out, '--n-components', '2', '--n-init',
+            '2', '--n-trials', '2', '--random-seed', '0']
+    with pytest.raises(RuntimeError, match="--platform cpu"):
+        drivers.main(argv + platform)
+    drivers.main(argv + ['--platform', 'cpu'])
+    assert open_dataset(out)['centroids'].data.shape == (2, 2, 4)
 
 
 @pytest.mark.parametrize("data,dtype", [

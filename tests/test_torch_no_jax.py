@@ -3,8 +3,9 @@
 A fresh interpreter with ``sys.modules['jax'] = None`` (any ``import
 jax`` then raises) imports ``convex_dim_red_tpu_torch`` and runs tiny
 CPU fits through the public entry points (AA, screened and padded,
-kernel AA, PCA, GPNH, a sweep and a checkpoint), as on a machine with
-no JAX.
+kernel AA, PCA, GPNH, k-means and its gap statistic, the sweeps, a
+checkpoint, the k-means analysis and a driver's ``main``), as on a
+machine with no JAX.
 """
 
 import os
@@ -64,6 +65,35 @@ _SCRIPT = textwrap.dedent("""
     path = os.path.join(tempfile.mkdtemp(), 'state')
     checkpoint.save_checkpoint(path, {'weights': res['weights']})
     assert checkpoint.load_checkpoint(path)['weights'].shape == (20, 2)
+    km = cdr.KMeans(2, n_init=2, random_state=0).fit(X)
+    gap, sk = cdr.gap_statistic(X, km.inertia_, 2, n_trials=3,
+                                random_state=0)
+    assert np.isfinite(gap) and km.predict(X).shape == (20,)
+    from convex_dim_red_tpu_torch.parallel import kmeans_model_selection_sweep
+    sweep = kmeans_model_selection_sweep(X, [2, 3], 0, n_init=2, n_trials=3)
+    assert np.isfinite(sweep[3]['gap'])
+    from convex_dim_red_tpu_torch.cli import common, drivers
+    model, onehot, attrs = common.kmeans_analysis(
+        X.numpy()[:15], X.numpy()[15:], n_components=2, n_init=2,
+        max_iterations=20, n_trials=3, reference='uniform', random_seed=0,
+        device='cpu')
+    assert onehot.shape == (15, 2) and attrs['test_set_size'] == '5'
+    from convex_dim_red_tpu_torch.pipelines.dataset import (
+        Dataset, Variable, open_dataset)
+    tmp = tempfile.mkdtemp()
+    field = np.random.RandomState(1).standard_normal((24, 3, 4))
+    Dataset({'sst_anom': Variable(('time', 'latitude', 'longitude'),
+                                  field)},
+            {'time': Variable(('time',), np.arange(24) * 30.5,
+                              {'units': 'days since 1990-1-1'}),
+             'latitude': Variable(('latitude',), np.array([-20.0, 0, 20])),
+             'longitude': Variable(('longitude',), np.arange(4.0))}
+            ).to_netcdf(os.path.join(tmp, 'in.nc'))
+    drivers.main(['hadisst_pca', os.path.join(tmp, 'in.nc'),
+                  os.path.join(tmp, 'out.nc'), '--n-components', '2',
+                  '--platform', 'cpu'])
+    assert open_dataset(os.path.join(tmp, 'out.nc'))['EOFs'].data.shape \
+        == (2, 3, 4)
     # The blocked names stay None; the JAX package is never imported.
     loaded = [m for m, mod in sys.modules.items() if mod is not None
               and m.split('.')[0] in ('jax', 'jaxlib',

@@ -6,18 +6,20 @@ padded to the bucket: every point equals the direct call it stands for,
 a resumed sweep equals an uninterrupted one (the port of
 tests/test_analysis_utils.py's checkpoint tests, fingerprint warning
 included), and a fit's state survives ``utils.checkpoint``'s round
-trip.  All on the CPU in float64.
+trip.  A k-means sweep point is a ``KMeans`` fit and its gap statistic
+from the two sub-seeds of its ``k``.  All on the CPU in float64.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from convex_dim_red_tpu_torch import KernelAA
+from convex_dim_red_tpu_torch import KMeans, KernelAA, gap_statistic
 from convex_dim_red_tpu_torch.parallel import (aa_model_selection_sweep,
                                                aa_fit_restarts,
                                                gpnh_fit_restarts,
-                                               gpnh_model_selection_sweep)
+                                               gpnh_model_selection_sweep,
+                                               kmeans_model_selection_sweep)
 from convex_dim_red_tpu_torch.parallel import sweep as tsweep
 from convex_dim_red_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                        resume_kernel_aa,
@@ -128,6 +130,60 @@ def test_gpnh_sweep_resumes_from_a_generator(tmp_path):
         assert np.isfinite(entry['cost']) and entry['rmse'] >= 0.0
     # k = 3 is planted: it reconstructs better than k = 2.
     assert fresh[3]['rmse'] < fresh[2]['rmse']
+
+
+KMEANS_KW = dict(n_init=3, n_trials=6, max_iter=50)
+
+
+def _blobs(seed, n_per=15):
+    rng = np.random.RandomState(seed)
+    centers = np.array([[0.0, 0.0, 0.0], [6.0, 0.0, 1.0], [0.0, 7.0, -1.0]])
+    return torch.as_tensor(np.concatenate(
+        [c + 0.4 * rng.standard_normal((n_per, 3)) for c in centers]))
+
+
+def test_kmeans_sweep_point_is_the_direct_fit():
+    X = _blobs(1)
+    results = kmeans_model_selection_sweep(X, [2, 3], 4, **KMEANS_KW)
+    seeds = tsweep._sub_seeds(4)
+    for k in (2, 3):
+        fit_seed, gap_seed = next(seeds), next(seeds)
+        model = KMeans(k, n_init=3, max_iter=50, random_state=fit_seed).fit(X)
+        gap, sk = gap_statistic(X, model.inertia_, k, n_trials=6,
+                                random_state=gap_seed)
+        assert set(results[k]) == {'cost', 'gap', 'gap_sk', 'n_iter',
+                                   'elapsed'}
+        assert results[k]['cost'] == model.inertia_
+        assert results[k]['n_iter'] == model.n_iter_
+        assert (results[k]['gap'], results[k]['gap_sk']) == (gap, sk)
+        assert results[k]['elapsed'] > 0.0
+    # Three planted blobs: the inertia falls with k and the gap peaks at 3.
+    assert results[3]['cost'] < results[2]['cost']
+    assert results[3]['gap'] > results[2]['gap']
+
+
+def test_kmeans_sweep_checkpoint_resume(tmp_path):
+    X = _blobs(2)
+    ckpt = str(tmp_path / "kmeans")
+    first = kmeans_model_selection_sweep(X, [2], 5, checkpoint_dir=ckpt,
+                                         **KMEANS_KW)
+    resumed = kmeans_model_selection_sweep(X, [2, 3], 5,
+                                           checkpoint_dir=ckpt, **KMEANS_KW)
+    fresh = kmeans_model_selection_sweep(X, [2, 3], 5, **KMEANS_KW)
+    assert resumed[2] == first[2]  # loaded, elapsed included
+    for key in ('cost', 'gap', 'gap_sk', 'n_iter'):
+        assert resumed[3][key] == fresh[3][key]
+        assert resumed[2][key] == fresh[2][key]
+    with pytest.warns(UserWarning, match="different sweep"):
+        changed = kmeans_model_selection_sweep(
+            X, [2], 5, checkpoint_dir=ckpt, **dict(KMEANS_KW, n_trials=4))
+    assert changed[2]['elapsed'] != first[2]['elapsed']  # recomputed
+
+
+def test_kmeans_sweep_rejects_mesh():
+    with pytest.raises(ValueError, match="mesh"):
+        kmeans_model_selection_sweep(_blobs(3), [2], 0, mesh=object(),
+                                     **KMEANS_KW)
 
 
 def test_checkpoint_roundtrip_and_resume(tmp_path):
