@@ -137,9 +137,37 @@ the run with a non-zero exit and no result line:
     those of the AA validation transform: float64 row by row, float32
     row by row (at most 1% of the rows apart by 1e-5) and in total.
 
+22. The multi-device layer (parallel/), in a world of two processes
+    sharing the card on gloo (parallel/mesh.py:spawn; the kernels are
+    built by phase 2 first): phase 7's best of 100 over a restart mesh
+    (2 x 1), each rank 50 restarts under compaction (the winner, its
+    audit and every restart's cost held to phase 7's, K1 launches by
+    rank to the schedule's); ``ArchetypalAnalysis(6)`` over a sample
+    mesh (1 x 2) with phase 8's 'pallas' settings (K1 at (1, 894, 6) an
+    iteration on each rank, the cost held to phase 8's K2 fit) and its
+    transform (one K2 launch a rank on 894 rows); config 4's GPNH best of
+    100 over the restart mesh (audit within 1e-4 of 2420.1641); config
+    2's ``KMeans(4, n_init=10)`` over (2 x 1) and (1 x 2) and
+    ``sharded_gap_statistic`` of 20 trials (inertia within 1% of JAX's,
+    the gap within 0.01); ``sharded_pca(167)`` of config 4's data with
+    the features split, in float64 (every explained variance within
+    1e-5 of its own against the single-device Gram path on the same
+    data) and in float32 (every one within 1e-5 of the leading one of
+    phase 10's, the first 8 within 1e-5 of their own: the float32 Grams
+    sum in other orders);
+    and a k = 96 sharded fit cut to 3 iterations (K3, then K4 in the
+    transform, on each rank's rows).
+23. A world of one process on NCCL: ``sharded_aa_fit`` over a (1 x 1)
+    mesh from four states on phase 7's data, 10 iterations (K1 at (4,
+    1788, 6)), bit for bit the single-device restart-grouped fit.
+24. K1 and K2 against their plain versions on rank 0's local operands
+    of phase 22's sharded estimator (its first K1 launch, its transform's
+    K2 launch), as phase 21 holds them.
+
 Each path runs with every launch count set to 0 just before it and read
-just after; phases 14-18 and 21 also check the K1 count against the one
-their restart schedule implies (the scheduler's calls are recorded).
+just after (in a world, in each process, and summed); phases 14-18, 21
+and 22 also check the K1 count against the one their restart schedule
+implies (the scheduler's calls are recorded).
 The last lines of standard output are the card's name and power limit,
 a JSON object with every kernel's launches (in all and by path), error,
 times and bound, and the JSON result line.
@@ -690,17 +718,6 @@ def phase_more_kernels():
             for key, times in out.items()}
 
 
-def planted(seed, n, d, k, noise):
-    rng = np.random.RandomState(seed)
-    basis = rng.uniform(size=(k, d))
-    Z = rng.uniform(size=(n, k))
-    Z /= Z.sum(axis=1, keepdims=True)
-    for comp, i in enumerate(rng.choice(n, size=k, replace=False)):
-        Z[i] = 0.0
-        Z[i, comp] = 1.0
-    return Z @ basis + noise * rng.standard_normal((n, d))
-
-
 def fit_kwargs():
     return dict(init='random', tolerance=TOL, max_iterations=MAX_ITER,
                 stopping_criterion='rel_delta_f',
@@ -722,7 +739,8 @@ def phase_small_fit():
     the row solver on the CPU, which stops on another rule."""
     import torch
     from convex_dim_red_tpu_torch import ArchetypalAnalysis, aa_fit_restarts
-    X = planted(0, 300, 40, 6, 0.01)
+    from convex_dim_red_tpu_torch.parallel.dryrun import planted_data
+    X = planted_data(0, 300, 40, 6, 0.01)
     kw = dict(fit_kwargs(), tolerance=1e-6, max_iterations=200,
               restart_chunk=4)
     kw['weights_solver_kwargs'] = dict(kw['weights_solver_kwargs'],
@@ -846,6 +864,9 @@ def phase_main_path(card):
              total_iters / elapsed, launches["K1"], peak_gb, card))
     check(rel <= AUDIT_RTOL, "audited cost %.4f is %.2e from %.2f"
           % (audit, rel, REFERENCE_AUDITED_COST))
+    RESULTS["main path"] = dict(costs=result['costs'], audit=audit,
+                                best_index=result['best_index'],
+                                launches=launches["K1"])
     return launches, X_host, result, elapsed
 
 
@@ -932,6 +953,8 @@ def phase_estimator(X_host, card):
         check(rise <= thresh, "%s: the cost rose by %.3e > watchdog %.3e"
               % (label, rise, thresh))
         if backend == "pallas":
+            RESULTS["estimator pallas"] = dict(cost=model.cost,
+                                               n_iter=model.n_iter)
             check(launches["K2"] == model.n_iter,
                   "pallas fit: %d K2 launches for %d iterations"
                   % (launches["K2"], model.n_iter))
@@ -1130,6 +1153,8 @@ def phase_pca_gpnh(card):
     check(gap <= 1e-3, "PCA transform differs from the scores by %.2e"
           % gap)
     pcs_host = pcs.cpu().numpy()
+    RESULTS["pcs"] = pcs_host
+    RESULTS["pca explained variance"] = pca.explained_variance_
 
     results = {}
     for n_init in (16, 100):
@@ -1175,6 +1200,8 @@ def phase_pca_gpnh(card):
         check(rel <= rtol, "GPNH best of %d: audited cost %.4f is %.2e from "
               "%.4f" % (n_init, audit, rel, ref))
         results[n_init] = (res, wall)
+    RESULTS["gpnh 100"] = dict(costs=results[100][0]['costs'],
+                               best_index=results[100][0]['best_index'])
 
     # K1 at the path's shape, on the recorded operands.
     times = {}
@@ -1510,6 +1537,7 @@ def phase_padded_aa(card):
     import torch
     from convex_dim_red_tpu_torch import aa_fit_restarts
     from convex_dim_red_tpu_torch.parallel import restarts
+    from convex_dim_red_tpu_torch.parallel.dryrun import planted_data
     X = torch.as_tensor(make_data(SWEEP_SAMPLES, SWEEP_FEATURES),
                         device=DEVICE)
     kw = dict(SWEEP_FIT, restart_chunk=10)
@@ -1539,7 +1567,7 @@ def phase_padded_aa(card):
 
     # The same active start, unpadded and padded (float64, small): the
     # same per-restart costs and iteration counts.
-    Xs = torch.as_tensor(planted(1, 300, 40, 5, 0.1), device=DEVICE)
+    Xs = torch.as_tensor(planted_data(1, 300, 40, 5, 0.1), device=DEVICE)
     gen = torch.Generator().manual_seed(0)
     states = restarts._init_aa_state(
         gen, 8, 0.0, n_samples=300, n_components=5, init='random',
@@ -1722,12 +1750,12 @@ def phase_gpnh_screened_padded(pcs, pcs_host, card):
     best of 100; then a short GPNH sweep k = 2..6, bucketed by 4."""
     import torch
     from convex_dim_red_tpu_torch import gpnh_fit_restarts
-    from convex_dim_red_tpu_torch.parallel import restarts
+    from convex_dim_red_tpu_torch.parallel import restarts, sharded_aa
     from convex_dim_red_tpu_torch.parallel.sweep import (
         gpnh_model_selection_sweep)
     ref = GPNH_REFERENCE[100][0]
     paths = {}
-    real_solve = restarts.update_gpnh_dictionary
+    real_solve = sharded_aa._solve_gpnh_dictionary
     before_mask = []
 
     def recording_solve(*args, **kwargs):
@@ -1745,12 +1773,12 @@ def phase_gpnh_screened_padded(pcs, pcs_host, card):
 
         k_active = GPNH_K if 'pad_components_to' in extra else None
         reset_launches()
-        restarts.update_gpnh_dictionary = recording_solve
+        sharded_aa._solve_gpnh_dictionary = recording_solve
         t0 = time.perf_counter()
         try:
             res, calls = recording_schedules(run, k_active=k_active)
         finally:
-            restarts.update_gpnh_dictionary = real_solve
+            sharded_aa._solve_gpnh_dictionary = real_solve
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches()
@@ -1915,6 +1943,7 @@ def phase_config2(X_host, card):
           "iterations per run %s" % (syncs, len(lloyd_calls), lloyd_calls))
     check(abs(model.inertia_ / CONFIG2_INERTIA - 1.0) <= CONFIG2_INERTIA_RTOL,
           "config 2: inertia %.1f" % model.inertia_)
+    RESULTS["config 2"] = {"inertia": model.inertia_, "gap 20": gaps[20]}
 
     # Lloyd in float64 from the same centroids, card against CPU.
     rng = np.random.RandomState(0)
@@ -2282,6 +2311,477 @@ def phase_case_study(card):
     return paths, held
 
 
+# ---------------------------------------------------------------------------
+# Phases 22-24: the multi-device layer on the card
+# ---------------------------------------------------------------------------
+
+#: The mesh phases run in worlds of processes (parallel/mesh.py:spawn):
+#: two processes share the one card on gloo (NCCL takes one process a
+#: device), and a world of one runs NCCL, the production route.  Each
+#: world has this time limit (seconds).
+MESH_WORLD, MESH_TIMEOUT = 2, 900.0
+MESH_BACKENDS = {"shared card": "gloo", "production": "nccl"}
+#: Results of the single-device phases that the mesh phases are held to.
+RESULTS = {}
+
+
+def _host(value):
+    """Tensors (in a dict, tuple or list) as numpy arrays."""
+    import torch
+    if isinstance(value, dict):
+        return {k: _host(v) for k, v in value.items()}
+    if isinstance(value, (tuple, list)):
+        return type(value)(_host(v) for v in value)
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return value
+
+
+def _timed(run):
+    """``run()`` once to warm up, then once timed with the launch counts
+    set to 0 just before: ``(result, wall seconds, launches)``."""
+    import torch
+    run()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_launches()
+
+
+def mesh_aa_restarts():
+    """Phase 7's best of 100 over a restart mesh (2 x 1): each rank runs
+    its 50 restarts under compaction."""
+    import torch
+    from convex_dim_red_tpu_torch import aa_fit_restarts
+    from convex_dim_red_tpu_torch.parallel.mesh import create_mesh
+    X = torch.as_tensor(make_data(), device=DEVICE)
+    mesh = create_mesh((MESH_WORLD, 1), device_type=DEVICE)
+    res, wall, launches = _timed(
+        lambda: aa_fit_restarts(X, K, 0, N_INIT, mesh=mesh, **fit_kwargs()))
+    return dict(wall=wall, launches=launches, **_host({
+        name: res[name] for name in ('weights', 'dictionary', 'cost',
+                                     'costs', 'n_iters', 'best_index')}))
+
+
+def mesh_aa_estimator():
+    """``ArchetypalAnalysis(6)`` over a sample mesh (1 x 2), phase 8's
+    'pallas' settings: K1 at R = 1 on the rank's 894 rows; then the
+    transform, K2 on the same rows.  The operands of each kernel's first
+    launch are kept."""
+    import torch
+    from convex_dim_red_tpu_torch import ArchetypalAnalysis
+    from convex_dim_red_tpu_torch.parallel.mesh import create_mesh
+    X = torch.as_tensor(make_data(), device=DEVICE)
+    mesh = create_mesh((1, MESH_WORLD), device_type=DEVICE)
+    model = ArchetypalAnalysis(
+        K, init='furthest_sum', random_state=0, tolerance=TOL,
+        stopping_criterion='rel_delta_f', max_iterations=MAX_ITER,
+        dictionary_solver_kwargs={'max_iterations': DICT_MAX_ITERATIONS},
+        weights_solver_kwargs={'max_iterations': WEIGHTS_MAX_ITERATIONS,
+                               'backend': 'pallas'}, mesh=mesh)
+    reset_launches()
+    t0 = time.perf_counter()
+    _, captured = capture_operands(lambda: model.fit(X), {K1_WRAPPER: (0,)})
+    torch.cuda.synchronize()
+    fit_wall = time.perf_counter() - t0
+    fit_launches = read_launches()
+    reset_launches()
+    t0 = time.perf_counter()
+    (W, cost), k2 = capture_operands(lambda: model.transform(X),
+                                     {K2_WRAPPER: (0,)})
+    torch.cuda.synchronize()
+    transform_wall = time.perf_counter() - t0
+    return dict(
+        fit_wall=fit_wall, fit_launches=fit_launches, cost=model.cost,
+        n_iter=model.n_iter, transform_wall=transform_wall,
+        transform_launches=read_launches(), transform_cost=cost,
+        **_host(dict(weights=model.weights, dictionary=model.dictionary,
+                     transform_weights=W)),
+        k1=_host(captured[K1_WRAPPER][0]), k2=_host(k2[K2_WRAPPER][0]))
+
+
+def mesh_gpnh_restarts(pcs_host):
+    """Config 4's GPNH best of 100 over a restart mesh (2 x 1)."""
+    import torch
+    from convex_dim_red_tpu_torch import gpnh_fit_restarts
+    from convex_dim_red_tpu_torch.parallel.mesh import create_mesh
+    pcs = torch.as_tensor(pcs_host, device=DEVICE)
+    mesh = create_mesh((MESH_WORLD, 1), device_type=DEVICE)
+    res, wall, launches = _timed(lambda: gpnh_fit_restarts(
+        pcs, GPNH_K, 0, 100, mesh=mesh, **GPNH_FIT))
+    return dict(wall=wall, launches=launches, **_host({
+        name: res[name] for name in ('weights', 'dictionary', 'cost',
+                                     'costs', 'n_iters', 'best_index')}))
+
+
+def mesh_kmeans():
+    """Config 2 over a (2 x 1) and a (1 x 2) mesh, and the gap statistic
+    of 20 trials over the restart axis."""
+    import torch
+    from convex_dim_red_tpu_torch import KMeans
+    from convex_dim_red_tpu_torch.parallel import sharded_gap_statistic
+    from convex_dim_red_tpu_torch.parallel.mesh import create_mesh
+    X = torch.as_tensor(make_data(), device=DEVICE)
+    out = {}
+    for shape in ((MESH_WORLD, 1), (1, MESH_WORLD)):
+        mesh = create_mesh(shape, device_type=DEVICE)
+        model, wall, launches = _timed(lambda: KMeans(
+            CONFIG2_K, n_init=10, random_state=0, mesh=mesh).fit(X))
+        out["%dx%d" % shape] = dict(inertia=model.inertia_,
+                                    n_iter=model.n_iter_, wall=wall,
+                                    launches=launches)
+        if shape[0] > 1:
+            (gap, sk), gap_wall, _ = _timed(lambda: sharded_gap_statistic(
+                mesh, X, model.inertia_, CONFIG2_K, n_trials=20,
+                random_state=0))
+            out["gap"] = dict(gap=gap, sk=sk, wall=gap_wall)
+    return out
+
+
+def mesh_pca():
+    """``sharded_pca`` of config 4's data, the features split in two, in
+    float32 (phase 10's dtype), and in float64 beside phase 10's Gram
+    path (``pca_fit(use_gram=True)``) run on one device on the same
+    data."""
+    import torch
+    from convex_dim_red_tpu_torch.models.pca import pca_fit
+    from convex_dim_red_tpu_torch.parallel import sharded_pca
+    from convex_dim_red_tpu_torch.parallel.mesh import create_mesh
+    data = make_data(GPNH_SAMPLES, GPNH_FEATURES)
+    X = torch.as_tensor(data, device=DEVICE)
+    mesh = create_mesh((1, MESH_WORLD), device_type=DEVICE)
+    res, wall, _ = _timed(lambda: sharded_pca(mesh, X,
+                                              n_components=PCA_MODES))
+    X64 = torch.as_tensor(data, dtype=torch.float64, device=DEVICE)
+    res64 = sharded_pca(mesh, X64, n_components=PCA_MODES)
+    _, single64, _, _ = pca_fit(X64, n_components=PCA_MODES, use_gram=True)
+    return dict(wall=wall, **_host(dict(
+        explained_variance=res['explained_variance'],
+        explained_variance_f64=res64['explained_variance'],
+        single_explained_variance_f64=single64,
+        components_shape=np.array(res['components'].shape))))
+
+
+def mesh_wide():
+    """A sharded fit at k = 96 over a sample mesh (1 x 2), cut to 3
+    iterations: K3 on each rank's 894 rows; its transform, K4."""
+    import torch
+    from convex_dim_red_tpu_torch import ArchetypalAnalysis
+    from convex_dim_red_tpu_torch.parallel.mesh import create_mesh
+    X = torch.as_tensor(make_data(), device=DEVICE)
+    model = ArchetypalAnalysis(WIDE_K, init='furthest_sum', random_state=0,
+                               max_iterations=3,
+                               weights_solver_kwargs={'backend': 'pallas'},
+                               mesh=create_mesh((1, MESH_WORLD),
+                                                device_type=DEVICE))
+    reset_launches()
+    t0 = time.perf_counter()
+    model.fit(X)
+    W, cost = model.transform(X)
+    torch.cuda.synchronize()
+    return dict(wall=time.perf_counter() - t0, launches=read_launches(),
+                cost=model.cost, n_iter=model.n_iter, transform_cost=cost,
+                transform_rows=W.shape[0])
+
+
+MESH_CASES = {"aa restarts": mesh_aa_restarts,
+              "aa estimator": mesh_aa_estimator,
+              "gpnh restarts": mesh_gpnh_restarts,
+              "kmeans": mesh_kmeans, "pca": mesh_pca, "wide": mesh_wide}
+
+
+def mesh_rank(cases):
+    """One rank of a mesh world: each of ``cases`` (``(name, kwargs)``),
+    in order; returns ``{name: result}`` (host values)."""
+    from convex_dim_red_tpu_torch.utils.precision import (
+        set_matmul_precision)
+    set_matmul_precision('float32')
+    return {name: MESH_CASES[name](**kwargs) for name, kwargs in cases}
+
+
+def nccl_rank():
+    """A world of one on NCCL: ``sharded_aa_fit`` over a (1 x 1) mesh and
+    the single-device restart-grouped fit from the same four states, on
+    phase 7's data, cut to 10 iterations (K1 at (4, 1788, 6))."""
+    import torch
+    from convex_dim_red_tpu_torch.parallel import sharded_aa_fit
+    from convex_dim_red_tpu_torch.parallel.dryrun import (random_states,
+                                                          single_aa_fit)
+    from convex_dim_red_tpu_torch.parallel.mesh import create_mesh
+    X = torch.as_tensor(make_data(), device=DEVICE)
+    states = [torch.as_tensor(a, dtype=X.dtype, device=DEVICE)
+              for a in random_states(0, 4, N_SAMPLES, K)[:3]]
+    kw = dict(tolerance=TOL, max_iterations=10,
+              dictionary_solver_kwargs={'max_iterations': 1})
+    weights = {'backend': 'pallas', 'max_iterations': WEIGHTS_MAX_ITERATIONS}
+    reset_launches()
+    res = sharded_aa_fit(create_mesh((1, 1), device_type=DEVICE), X,
+                         *states, weights_solver_kwargs=weights,
+                         stopping_criterion='rel_delta_f', **kw)
+    launches = read_launches()
+    mesh_backend = torch.distributed.get_backend()
+    costs, n_iters, single = single_aa_fit(
+        X, *states, device=DEVICE, weights_solver_kwargs=weights,
+        criterion='rel_delta_f', **kw)
+    best = int(np.argmin(costs))
+    return dict(backend=mesh_backend, launches=launches,
+                costs=res['costs'], single_costs=costs,
+                n_iters=res['n_iters'], single_n_iters=n_iters,
+                weights_equal=bool(torch.equal(
+                    torch.as_tensor(res['weights'], device=DEVICE),
+                    single[0][best])))
+
+
+def _factors(result):
+    """A world's returned weights and dictionary as tensors, for the
+    host audits."""
+    import torch
+    return {name: torch.as_tensor(result[name])
+            for name in ('weights', 'dictionary')}
+
+
+def phase_mesh(card, X_host):
+    """Phase 22: a world of two processes sharing the card (gloo) runs
+    the restart-sharded AA and GPNH fits, the sample-sharded estimator
+    and its transform, k-means, the gap statistic, PCA and a k = 96
+    sharded fit; each result is held to the single-device phases'."""
+    import torch
+    from convex_dim_red_tpu_torch.parallel.mesh import spawn
+    torch.cuda.empty_cache()
+    cases = [("aa restarts", {}), ("aa estimator", {}),
+             ("gpnh restarts", dict(pcs_host=RESULTS["pcs"])),
+             ("kmeans", {}), ("pca", {}), ("wide", {})]
+    t0 = time.perf_counter()
+    ranks = spawn(mesh_rank, MESH_WORLD, args=(cases,),
+                  backend=MESH_BACKENDS["shared card"], device_type=DEVICE,
+                  timeout=MESH_TIMEOUT)
+    print("  a world of %d processes on the card (%s): %.1f s in all, "
+          "start-up included" % (MESH_WORLD, MESH_BACKENDS["shared card"],
+                                 time.perf_counter() - t0))
+    paths = {}
+
+    # The restart-sharded best of 100 against phase 7's.
+    ref = RESULTS["main path"]
+    got = [r["aa restarts"] for r in ranks]
+    res = got[0]
+    for r in got[1:]:
+        check(np.array_equal(r["costs"], res["costs"]),
+              "restart mesh: ranks return other costs")
+    audit = audit_cost_f64(_factors(res), X_host)
+    rel_costs = float(np.max(np.abs(res["costs"] / ref["costs"] - 1.0)))
+    per_rank = [r["launches"]["K1"] for r in got]
+    blocks = np.array_split(res["n_iters"], MESH_WORLD)
+    expected = [compacted_launches(b, RESTART_CHUNK, COMPACT_ITERS, MAX_ITER)
+                for b in blocks]
+    print("  AA best of 100, restart mesh %dx1: wall %s s (timed run, by "
+          "rank), K1 launches by rank %s (phase 7: %d in one process), "
+          "winner %d (phase 7: %d), audited %.4f (phase 7 %.4f, reference "
+          "%.2f), per-restart costs max rel diff from phase 7 %.2e, on %s"
+          % (MESH_WORLD, [round(r["wall"], 3) for r in got], per_rank,
+             ref["launches"], res["best_index"], ref["best_index"], audit,
+             ref["audit"], REFERENCE_AUDITED_COST, rel_costs, card))
+    check(per_rank == expected, "restart mesh: K1 launches %s, the "
+          "schedule implies %s" % (per_rank, expected))
+    check(res["best_index"] == ref["best_index"],
+          "restart mesh: winner %d, phase 7's %d"
+          % (res["best_index"], ref["best_index"]))
+    check(rel_costs <= SCHEDULER_RTOL, "restart mesh: per-restart costs "
+          "%.2e from phase 7's" % rel_costs)
+    check(abs(audit / REFERENCE_AUDITED_COST - 1.0) <= AUDIT_RTOL
+          and abs(audit / ref["audit"] - 1.0) <= SCHEDULER_RTOL,
+          "restart mesh: audited cost %.4f" % audit)
+    total = dict.fromkeys(read_launches(), 0)
+    for r in got:
+        add_launches(total, r["launches"])
+    paths["AA best of 100, restart mesh 2x1"] = total
+
+    # The sample-sharded estimator and its transform.
+    est = [r["aa estimator"] for r in ranks]
+    e = est[0]
+    ref = RESULTS["estimator pallas"]
+    rel = abs(e["cost"] / ref["cost"] - 1.0)
+    audit = audit_cost_f64(_factors(e), X_host)
+    print("  ArchetypalAnalysis(6), mesh 1x%d: fit %s s by rank, n_iter %d "
+          "(phase 8's K2 fit %d), cost %.4f (phase 8 %.4f, rel diff %.2e; "
+          "float64 audit %.4f), K1 launches by rank %s; transform %s s, K2 "
+          "launches by rank %s on %d rows each, cost %.4f"
+          % (MESH_WORLD, [round(r["fit_wall"], 3) for r in est], e["n_iter"],
+             ref["n_iter"], e["cost"], ref["cost"], rel, audit,
+             [r["fit_launches"]["K1"] for r in est],
+             [round(r["transform_wall"], 4) for r in est],
+             [r["transform_launches"]["K2"] for r in est],
+             N_SAMPLES // MESH_WORLD, e["transform_cost"]))
+    check(rel <= SCHEDULER_RTOL, "sharded estimator: cost %.4f vs %.4f"
+          % (e["cost"], ref["cost"]))
+    check(abs(audit / e["cost"] - 1.0) <= 1e-4,
+          "sharded estimator: audit %.4f vs %.4f" % (audit, e["cost"]))
+    for r in est:
+        check(r["fit_launches"] == dict(K1=e["n_iter"], K2=0, K3=0, K4=0),
+              "sharded estimator: launches %s" % r["fit_launches"])
+        check(r["transform_launches"] == dict(K1=0, K2=1, K3=0, K4=0),
+              "sharded transform: launches %s" % r["transform_launches"])
+        check(r["k1"][1].shape == (1, N_SAMPLES // MESH_WORLD, K)
+              and r["k2"][1].shape == (N_SAMPLES // MESH_WORLD, K),
+              "sharded estimator: local operands %s, %s"
+              % (r["k1"][1].shape, r["k2"][1].shape))
+    W = e["transform_weights"]
+    check(W.shape == (N_SAMPLES, K)
+          and float(np.abs(W.astype(np.float64).sum(axis=1) - 1).max())
+          <= 1e-4 and float(W.min()) >= 0.0,
+          "sharded transform: weights off the simplex")
+    check(e["transform_cost"] <= e["cost"] * (1 + 1e-4),
+          "sharded transform cost %.4f above the fit's %.4f"
+          % (e["transform_cost"], e["cost"]))
+    for key, name in (("fit_launches", "AA estimator k=6, mesh 1x2, fit"),
+                      ("transform_launches",
+                       "AA estimator k=6, mesh 1x2, transform")):
+        total = dict.fromkeys(read_launches(), 0)
+        for r in est:
+            add_launches(total, r[key])
+        paths[name] = total
+
+    # Config 4's GPNH best of 100 over the restart mesh.
+    g = [r["gpnh restarts"] for r in ranks]
+    ref = RESULTS["gpnh 100"]
+    audit = gpnh_audit(_factors(g[0]), RESULTS["pcs"])
+    want, rtol = GPNH_REFERENCE[100]
+    rel_costs = float(np.max(np.abs(g[0]["costs"] / ref["costs"] - 1.0)))
+    print("  GPNH best of 100 (config 4), restart mesh %dx1: wall %s s by "
+          "rank, K1 launches by rank %s, winner %d (phase 10: %d), audited "
+          "%.4f (reference %.4f, rel diff %.2e), per-restart costs max rel "
+          "diff from phase 10 %.2e"
+          % (MESH_WORLD, [round(r["wall"], 3) for r in g],
+             [r["launches"]["K1"] for r in g], g[0]["best_index"],
+             ref["best_index"], audit, want, abs(audit / want - 1.0),
+             rel_costs))
+    check(abs(audit / want - 1.0) <= rtol, "GPNH restart mesh: audit %.4f"
+          % audit)
+    total = dict.fromkeys(read_launches(), 0)
+    for r in g:
+        add_launches(total, r["launches"])
+    paths["GPNH best of 100, restart mesh 2x1"] = total
+
+    # Config 2: k-means on both meshes and the gap of 20 trials.
+    km = ranks[0]["kmeans"]
+    ref = RESULTS["config 2"]
+    for shape in ("%dx1" % MESH_WORLD, "1x%d" % MESH_WORLD):
+        r = km[shape]
+        print("  KMeans(4, n_init=10), mesh %s: %.3f s, inertia %.1f (phase "
+              "19 %.1f, rel diff %.2e; JAX %.1f), n_iter %d, launches %s"
+              % (shape, r["wall"], r["inertia"], ref["inertia"],
+                 r["inertia"] / ref["inertia"] - 1.0, CONFIG2_INERTIA,
+                 r["n_iter"], r["launches"]))
+        check(abs(r["inertia"] / CONFIG2_INERTIA - 1.0)
+              <= CONFIG2_INERTIA_RTOL, "k-means mesh %s: inertia %.1f"
+              % (shape, r["inertia"]))
+        check(sum(r["launches"].values()) == 0, "k-means launched a kernel")
+    gap = km["gap"]
+    print("  sharded_gap_statistic, 20 trials over the restart axis: %.3f "
+          "s, gap %.5f (phase 19 %.5f; JAX %.4f), sk %.3e"
+          % (gap["wall"], gap["gap"], ref["gap 20"][0], CONFIG2_GAP,
+             gap["sk"]))
+    check(abs(gap["gap"] - CONFIG2_GAP) <= CONFIG2_GAP_ATOL,
+          "sharded gap %.5f" % gap["gap"])
+
+    # PCA of config 4's data, the features split.  In float64 every mode
+    # is held to 1e-5 of its own variance against the single-device Gram
+    # path on the same data.  In float32 both Grams are sums in other
+    # orders, so mode i's variance carries an error of ~eps lambda_1:
+    # there every mode is held to 1e-5 of the leading one's, against
+    # phase 10 (and the planted rank-8 signal's modes to 1e-5 of their
+    # own).
+    p = ranks[0]["pca"]
+    want64 = p["single_explained_variance_f64"]
+    rel64 = np.abs(p["explained_variance_f64"] - want64) / want64
+    ref = RESULTS["pca explained variance"]
+    diff = np.abs(p["explained_variance"] - ref)
+    rel = diff / ref
+    rel_lead = float(np.max(diff) / ref[0])
+    print("  sharded_pca(%d) of %dx%d, features over %d ranks: %.3f s; "
+          "float64 against the single-device Gram path: every mode's max "
+          "rel diff %.2e (mode %d); float32 against phase 10: max diff / "
+          "the leading mode's %.2e, modes 1-8 max rel diff %.2e, all "
+          "modes max rel diff %.2e (mode %d)"
+          % (PCA_MODES, GPNH_SAMPLES, GPNH_FEATURES, MESH_WORLD, p["wall"],
+             float(np.max(rel64)), int(np.argmax(rel64)) + 1, rel_lead,
+             float(np.max(rel[:8])), float(np.max(rel)),
+             int(np.argmax(rel)) + 1))
+    check(tuple(p["components_shape"]) == (PCA_MODES, GPNH_FEATURES),
+          "sharded PCA components %s" % (p["components_shape"],))
+    check(float(np.max(rel64)) <= SCHEDULER_RTOL,
+          "sharded PCA float64: explained variance %.2e from the "
+          "single-device Gram path's" % float(np.max(rel64)))
+    check(rel_lead <= SCHEDULER_RTOL and np.max(rel[:8]) <= SCHEDULER_RTOL,
+          "sharded PCA: explained variance %.2e of the leading mode's "
+          "from phase 10's" % rel_lead)
+
+    # k = 96: K3 and K4 on each rank's rows.
+    wide = [r["wide"] for r in ranks]
+    print("  ArchetypalAnalysis(96), mesh 1x%d, 3 iterations: %s s by rank, "
+          "cost %.4f, transform cost %.4f on %d rows, launches by rank %s"
+          % (MESH_WORLD, [round(r["wall"], 3) for r in wide], wide[0]["cost"],
+             wide[0]["transform_cost"], wide[0]["transform_rows"],
+             [r["launches"] for r in wide]))
+    for r in wide:
+        check(r["launches"] == dict(K1=0, K2=0, K3=r["n_iter"], K4=1)
+              and np.isfinite(r["cost"]) and np.isfinite(
+                  r["transform_cost"]),
+              "k=96 mesh: launches %s, cost %s" % (r["launches"], r["cost"]))
+    total = dict.fromkeys(read_launches(), 0)
+    for r in wide:
+        add_launches(total, r["launches"])
+    paths["AA estimator k=96, mesh 1x2, fit + transform"] = total
+    return paths, [r["aa estimator"] for r in ranks]
+
+
+def phase_nccl(card):
+    """Phase 23: a world of one process on NCCL."""
+    import torch
+    from convex_dim_red_tpu_torch.parallel.mesh import spawn
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (r,) = spawn(nccl_rank, 1, backend=MESH_BACKENDS["production"],
+                 device_type=DEVICE, timeout=MESH_TIMEOUT)
+    print("  a world of 1 on %s (%.1f s with start-up): sharded_aa_fit "
+          "(1x1) costs %s vs the single-device path's %s, n_iters %s / %s, "
+          "winner's weights equal %s, launches %s"
+          % (r["backend"], time.perf_counter() - t0,
+             np.round(r["costs"], 4).tolist(),
+             np.round(r["single_costs"], 4).tolist(), r["n_iters"].tolist(),
+             r["single_n_iters"].tolist(), r["weights_equal"], r["launches"]))
+    check(r["backend"] == MESH_BACKENDS["production"],
+          "the world ran on %s" % r["backend"])
+    check(np.array_equal(r["costs"], r["single_costs"])
+          and np.array_equal(r["n_iters"], r["single_n_iters"])
+          and r["weights_equal"], "NCCL (1x1): not the single-device bits")
+    check(r["launches"]["K1"] == 10, "NCCL (1x1): launches %s"
+          % r["launches"])
+    return {"sharded_aa_fit, NCCL world of 1": r["launches"]}
+
+
+def phase_mesh_kernels(est):
+    """Phase 24: K1 and K2 against their plain versions on rank 0's local
+    operands of the sharded estimator (its first K1 launch, the
+    transform's K2 launch)."""
+    import torch
+    from convex_dim_red_tpu_torch.ops import simplex_qp as sq
+    held = {}
+    for key, name, kernel, plain in (
+            ("k1", "K1 sharded estimator, rank 0",
+             sq.quad_simplex_qp_packed_grouped,
+             sq.quad_simplex_qp_packed_grouped_reference),
+            ("k2", "K2 sharded transform, rank 0",
+             sq.quad_simplex_qp_packed,
+             _one_group(sq.quad_simplex_qp_packed_grouped_reference))):
+        A, B, X0, kw = est[0][key]
+        operands = tuple(torch.as_tensor(a, device=DEVICE)
+                         for a in (A, B, X0)) + (dict(kw),)
+        held[name] = hold_path_qp(name, kernel, plain, operands)
+    return held
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_device()
@@ -2341,6 +2841,14 @@ def main():
     for key, entry in held.items():  # "K1 HadISST AA, launch 0": ...
         kernels[key[:2]].setdefault("case_study_shapes", {})[
             key[3:]] = entry
+    phase("mesh: restart- and sample-sharded fits, a world of 2 (gloo)")
+    mesh_paths, estimator_ranks = phase_mesh(card, X_host)
+    paths.update(mesh_paths)
+    phase("mesh: sharded_aa_fit in a world of 1 on NCCL")
+    paths.update(phase_nccl(card))
+    phase("mesh: K1 and K2 on a rank's local operands")
+    for key, entry in phase_mesh_kernels(estimator_ranks).items():
+        kernels[key[:2]].setdefault("mesh_shapes", {})[key[3:]] = entry
     print("all phases passed in %.1f s" % (time.perf_counter() - t_start))
     print(card)
     by_path = {key: {path: counts[key] for path, counts in paths.items()

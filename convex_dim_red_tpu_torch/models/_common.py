@@ -5,8 +5,7 @@ loop with its verbose table).
 Port of convex_dim_red_tpu/models/_common.py.  The configs keep the
 JAX package's fields and defaults, so a kwargs dict written for one
 package builds the same config in the other.  ``prepare_estimator_mesh``
-is not ported: the estimators' ``mesh=`` is multi-GPU work (ROADMAP.md
-queue 1, item 17).
+validates and lifts an estimator's ``mesh=`` (parallel/mesh.py).
 """
 
 import numbers
@@ -23,6 +22,7 @@ __all__ = [
     "check_estimator_params",
     "STOPPING_CRITERIA",
     "has_converged",
+    "prepare_estimator_mesh",
 ]
 
 
@@ -150,20 +150,71 @@ def _as_generator(random_state):
     return torch.Generator().manual_seed(seed)
 
 
-def _generator_on(random_state, device):
+def _generator_on(random_state, device, mesh=None):
     """A ``torch.Generator`` as given, or one on ``device`` seeded from
     ``random_state`` (an integer, None or a ``numpy.random.RandomState``,
-    read as :func:`_as_generator` reads it)."""
+    read as :func:`_as_generator` reads it).  With ``mesh`` the seed is
+    the mesh's first rank's, so every rank draws the same numbers (a
+    ``None`` seed is drawn once)."""
     if isinstance(random_state, torch.Generator):
         return random_state
     seed = _as_generator(random_state).initial_seed()
+    if mesh is not None:
+        # Deferred: parallel imports this module.
+        from ..parallel.mesh import _agree_object
+        seed = _agree_object(seed, mesh)
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def _reject_mesh(mesh):
-    if mesh is not None:
-        raise ValueError("mesh= is not ported yet (ROADMAP.md queue 1, "
-                         "item 17: multi-GPU)")
+def prepare_estimator_mesh(mesh, n_samples, whom, dim_name='n_samples',
+                           single_fit=True):
+    """Validate an estimator's ``mesh=`` and lift it to both axes
+    (:func:`parallel.mesh.ensure_mesh_axes`).
+
+    Most estimators run a single fit, so every rank goes on the sample
+    axis: a 2-D mesh must have a restart axis of size 1 (the multi-
+    restart fits are ``parallel.aa_fit_restarts`` and
+    ``parallel.sharded_*_fit``); ``single_fit=False`` is for estimators
+    with a restart batch of their own (KMeans' ``n_init``).  The sample
+    axis must divide ``n_samples``.  Raises ``ValueError`` as the JAX
+    function does.
+    """
+    # Deferred: parallel imports this module.
+    from ..parallel.mesh import ensure_mesh_axes
+
+    mesh = ensure_mesh_axes(mesh)
+    names = mesh.mesh_dim_names
+    n_restart_shards = mesh.size(names.index('restarts'))
+    if single_fit and n_restart_shards != 1:
+        raise ValueError(
+            "%s: estimator-level mesh= runs one fit, so the 'restarts' "
+            "mesh axis must have size 1 (got %d); shard multi-restart "
+            "fits with parallel.aa_fit_restarts / parallel.sharded_*_fit"
+            % (whom, n_restart_shards))
+    n_shards = mesh.size(names.index('samples'))
+    if n_samples % n_shards:
+        raise ValueError(
+            "%s: %s (%d) must be divisible by the mesh sample axis (%d "
+            "ranks); pad or subset the data, or use a smaller mesh"
+            % (whom, dim_name, n_samples, n_shards))
+    return mesh
+
+
+def _fit_device(mesh, device):
+    """Where a fit runs: the mesh's device (its device type decides),
+    else ``device`` as :func:`utils.validation.as_input` reads it."""
+    if mesh is None:
+        return device
+    from ..parallel.mesh import mesh_device
+    return mesh_device(mesh)
+
+
+def _check_mesh(mesh):
+    """An estimator's ``mesh`` at construction: None, or a DeviceMesh
+    with the mesh axes; anything else raises ``ValueError`` naming
+    ``mesh``."""
+    from ..parallel.mesh import check_mesh
+    check_mesh(mesh)
 
 
 #: Iterations per chunk of the verbose table (see :func:`_run_fit`), as

@@ -30,8 +30,15 @@ and monotonicity watchdog as the JAX package.
   unless ``device`` is given, anything else goes to ``device``, by
   default ``'cuda'`` (``RuntimeError`` where there is no CUDA device;
   pass ``device='cpu'``).  See :func:`utils.validation.as_input`.
-- ``mesh=`` (the JAX package's SPMD fits) is not ported: multi-GPU is
-  ROADMAP.md queue 1, item 17.
+- ``mesh=`` (a DeviceMesh, parallel/mesh.py) runs a full fit as one
+  restart of ``parallel.sharded_aa.sharded_aa_fit`` (or
+  ``sharded_kernel_aa_fit``) with every rank on the sample axis, on the
+  mesh's device; the estimator's generator is seeded with the mesh's
+  first rank's seed (constructing it is collective), so every rank
+  draws the same initial state; the
+  weights QP runs K1 (K3 above k = 64) on each rank's rows.  A
+  partial fit stays on one device; ``transform`` splits the rows when
+  they divide over the sample axis.
 """
 
 import time
@@ -49,7 +56,8 @@ from ..utils.precision import apply_matmul_precision, matmul_precision_scope
 from ..utils.validation import (as_input, check_array_shape,
                                 check_stochastic_matrix)
 from ._common import (QPSolverConfig, SPGSolverConfig, make_config,
-                      STOPPING_CRITERIA, _as_generator, _reject_mesh,
+                      STOPPING_CRITERIA, _check_mesh, _fit_device,
+                      _generator_on, prepare_estimator_mesh,
                       _run_fit, check_estimator_params, has_converged)
 
 __all__ = [
@@ -400,14 +408,14 @@ class KernelAA:
     ``dictionary``, ``alpha``, ``cost``, ``n_iter``,
     ``avg_time_per_iter``, ``cost_deltas``.  The fit runs in the
     kernel's dtype, on the device that ``device`` gives it (see the
-    module docstring).  ``random_state``: see the module docstring.
-    ``mesh`` must be None.
+    module docstring).  ``random_state`` and ``mesh``: see the module
+    docstring.
     """
 
     def __init__(self, n_components, delta=0, init=None,
                  tolerance=1e-6, max_iterations=1000, verbose=0,
                  random_state=None, mesh=None, device=None, **kwargs):
-        _reject_mesh(mesh)
+        _check_mesh(mesh)
         self.n_components = n_components
         self.delta = delta
         self.init = init
@@ -416,7 +424,7 @@ class KernelAA:
         self.verbose = verbose
         self.mesh = mesh
         self.device = device
-        self._generator = _as_generator(random_state)
+        self._generator = _generator_on(random_state, 'cpu', mesh=mesh)
         self.require_monotonic_cost_decrease = kwargs.get(
             'require_monotonic_cost_decrease', True)
         self.stopping_criterion = kwargs.get('stopping_criterion',
@@ -477,7 +485,7 @@ class KernelAA:
     def _kernel_aa(self, kernel, dictionary=None, weights=None, alpha=None,
                    update_dictionary=True, update_weights=True,
                    update_scale_factors=True, data=None, **kwargs):
-        kernel = as_input(kernel, self.device)
+        kernel = as_input(kernel, _fit_device(self.mesh, self.device))
         n_samples = kernel.shape[0]
         if kernel.ndim != 2 or kernel.shape[1] != n_samples:
             raise ValueError(
@@ -492,6 +500,14 @@ class KernelAA:
         dictionary, weights, alpha = self._prepare_state(
             kernel, dictionary, weights, alpha,
             update_dictionary, update_weights, '_kernel_aa', **kwargs)
+
+        # Full alternating fits run sharded over the mesh; partial fits
+        # (a weights-only solve) are small and stay on one device.
+        if (self.mesh is not None and update_dictionary and update_weights
+                and (float(self.delta) == 0.0 or update_scale_factors)
+                and data is None):
+            return self._kernel_aa_sharded(kernel, dictionary, weights,
+                                           alpha)
 
         (self.weights, self.dictionary, self.alpha, cost, n_iter,
          avg_time, cost_deltas) = iterate_kernel_aa(
@@ -515,6 +531,39 @@ class KernelAA:
                           % self.max_iterations, UserWarning)
 
         return cost, n_iter, avg_time, cost_deltas
+
+    def _kernel_aa_sharded(self, kernel, dictionary, weights, alpha):
+        """The fit over the estimator's mesh (one restart, every rank on
+        the sample axis)."""
+        # Deferred: parallel imports this module's cost helpers.
+        from ..parallel.sharded_aa import sharded_kernel_aa_fit
+
+        mesh = prepare_estimator_mesh(self.mesh, kernel.shape[0],
+                                      'KernelAA(mesh=...)')
+        start = time.perf_counter()
+        res = sharded_kernel_aa_fit(
+            mesh, kernel, weights[None], dictionary[None], alpha[None],
+            delta=self.delta, tolerance=self.tolerance,
+            max_iterations=int(self.max_iterations),
+            stopping_criterion=self.stopping_criterion,
+            dictionary_solver_kwargs=self.dictionary_solver_kwargs,
+            weights_solver_kwargs=self.weights_solver_kwargs,
+            scale_factors_solver_kwargs=self.scale_factors_solver_kwargs)
+        elapsed = time.perf_counter() - start
+
+        # The sharded fit returns diag(alpha) C for delta != 0; KernelAA
+        # keeps the row-stochastic C, as the reference does.
+        self.weights = res['weights']
+        self.alpha = res['alpha']
+        self.dictionary = (res['dictionary'] / self.alpha[:, None]
+                           if float(self.delta) != 0.0
+                           else res['dictionary'])
+        n_iter = res['n_iter']
+        if n_iter >= self.max_iterations and self.tolerance > 0:
+            warnings.warn('Maximum number of iterations %d reached.'
+                          % self.max_iterations, UserWarning)
+        return (res['cost'], n_iter, elapsed / max(n_iter, 1),
+                res['cost_deltas'][:n_iter])
 
     def fit_transform(self, data, dictionary=None, weights=None, alpha=None,
                       _data_matrix=None, **kwargs):
@@ -541,7 +590,7 @@ class ArchetypalAnalysis:
     ``fit_transform`` / ``transform`` / ``inverse_transform``, with the
     fitted attributes of :class:`KernelAA` plus ``archetypes`` (``a C
     X``).  The fit runs in the data's dtype, on the device that
-    ``device`` gives it (see the module docstring).
+    ``device`` (or ``mesh``) gives it (see the module docstring).
     """
 
     def __init__(self, n_components, delta=0, init=None,
@@ -576,12 +625,22 @@ class ArchetypalAnalysis:
     def fit_transform(self, data, dictionary=None, weights=None, alpha=None,
                       **kwargs):
         """Fit AA to ``data`` with shape (n_samples, n_features)."""
-        data = as_input(data, self.device)
+        data = as_input(data, _fit_device(self.mesh, self.device))
         if self.n_components is None:
             # Reference quirk kept for parity: data-space AA defaults to
             # n_features components.
             self.n_components = data.shape[1]
             self._kernel_model.n_components = data.shape[1]
+
+        if self.mesh is not None \
+                and kwargs.get('update_dictionary', True) \
+                and kwargs.get('update_weights', True) \
+                and (float(self.delta) == 0.0
+                     or kwargs.get('update_scale_factors', True)):
+            # Before the n x n Gram: the sharded fit forms its own kernel
+            # rows (the Gram is made only for FurthestSum's init).
+            return self._fit_sharded(data, dictionary, weights, alpha,
+                                     **kwargs)
 
         with matmul_precision_scope():
             kernel = data @ data.T
@@ -607,6 +666,58 @@ class ArchetypalAnalysis:
 
         return self.weights
 
+    def _fit_sharded(self, data, dictionary, weights, alpha, **kwargs):
+        """The fit over the estimator's mesh (one restart, every rank on
+        the sample axis), residual-form cost as on one device."""
+        # Deferred: parallel imports this module's cost helpers.
+        from ..parallel.sharded_aa import sharded_aa_fit
+
+        km = self._kernel_model
+        mesh = prepare_estimator_mesh(self.mesh, data.shape[0],
+                                      'ArchetypalAnalysis(mesh=...)')
+        check_estimator_params(km.n_components, km.max_iterations,
+                               km.tolerance)
+        if km.init in (None, 'furthest_sum'):
+            # FurthestSum needs the whole dissimilarity matrix.
+            with matmul_precision_scope():
+                kernel = data @ data.T
+        else:
+            # The random and custom inits read only the row count, dtype
+            # and device.
+            kernel = data[:, :0]
+        init_kwargs = {k: v for k, v in kwargs.items()
+                       if k not in ('update_dictionary', 'update_weights',
+                                    'update_scale_factors')}
+        dictionary, weights, alpha = km._prepare_state(
+            kernel, dictionary, weights, alpha, True, True,
+            'fit_transform', **init_kwargs)
+
+        start = time.perf_counter()
+        res = sharded_aa_fit(
+            mesh, data, weights[None], dictionary[None], alpha[None],
+            delta=self.delta, tolerance=self.tolerance,
+            max_iterations=int(self.max_iterations),
+            stopping_criterion=km.stopping_criterion,
+            dictionary_solver_kwargs=km.dictionary_solver_kwargs,
+            weights_solver_kwargs=km.weights_solver_kwargs,
+            scale_factors_solver_kwargs=km.scale_factors_solver_kwargs)
+        elapsed = time.perf_counter() - start
+
+        self.weights = res['weights']
+        self.alpha = res['alpha']
+        # diag(alpha) C for delta != 0: this class's convention.
+        self.dictionary = res['dictionary']
+        with matmul_precision_scope():
+            self.archetypes = self.dictionary @ data
+        self.cost = res['cost']
+        self.n_iter = n_iter = res['n_iter']
+        self.avg_time_per_iter = elapsed / max(n_iter, 1)
+        self.cost_deltas = res['cost_deltas'][:n_iter]
+        if n_iter >= self.max_iterations and self.tolerance > 0:
+            warnings.warn('Maximum number of iterations %d reached.'
+                          % self.max_iterations, UserWarning)
+        return self.weights
+
     def fit(self, data, **kwargs):
         self.fit_transform(data, **kwargs)
         return self
@@ -615,9 +726,11 @@ class ArchetypalAnalysis:
         """Solve weights for new data against the fitted archetypes: one
         simplex QP per row, a cold one-shot batch (``backend='auto'``
         runs a kernel on a CUDA device), capped at the estimator's
-        ``max_iterations`` as in the reference.  Returns ``(weights,
-        cost)``."""
-        data = as_input(data, self.device)
+        ``max_iterations`` as in the reference.  With ``mesh`` each rank
+        solves its block of the rows when they divide over the sample
+        axis (and the restart axis has size 1), else the whole batch, as
+        the JAX estimator falls back.  Returns ``(weights, cost)``."""
+        data = as_input(data, _fit_device(self.mesh, self.device))
         n_samples = data.shape[0]
 
         cfg = make_config(QPSolverConfig, dict(
@@ -631,6 +744,15 @@ class ArchetypalAnalysis:
             self._kernel_model._generator, (n_samples, self.n_components),
             dtype=data.dtype, device=data.device)
 
+        if self.mesh is not None:
+            from ..parallel.mesh import ensure_mesh_axes
+            m = ensure_mesh_axes(self.mesh)
+            names = m.mesh_dim_names
+            if (m.size(names.index('restarts')) == 1
+                    and n_samples % m.size(names.index('samples')) == 0):
+                return self._transform_sharded(data, archetypes, Z0,
+                                               cfg_kwargs)
+
         with matmul_precision_scope():
             A = archetypes @ archetypes.T
             B = -(data @ archetypes.T)
@@ -639,6 +761,28 @@ class ArchetypalAnalysis:
             resid = data - weights @ archetypes
         cost = 0.5 * float(torch.sum(resid * resid)) / n_samples
         return weights, cost
+
+    def _transform_sharded(self, data, archetypes, Z0, cfg_kwargs):
+        """The transform over the mesh's sample axis: each rank solves
+        its rows' QPs (one shared k x k Hessian, so K2 or K4 on a card);
+        the weights are gathered and the squared residuals
+        all-reduced."""
+        from ..parallel.mesh import _all_gather, _axis, _block, _psum
+
+        n_samples = data.shape[0]
+        mesh = prepare_estimator_mesh(
+            self.mesh, n_samples, 'ArchetypalAnalysis.transform(mesh=...)')
+        size, index, _ = _axis(mesh, 'samples')
+        rows = _block(n_samples, size, index)
+        with matmul_precision_scope():
+            A = archetypes @ archetypes.T
+            B_loc = -(data[rows] @ archetypes.T)
+            W_loc = quad_simplex_spg_batch(A, B_loc, Z0[rows].contiguous(),
+                                           **cfg_kwargs)
+            resid = data[rows] - W_loc @ archetypes
+        ss = _psum(torch.sum(resid * resid), mesh, 'samples')
+        self.weights = _all_gather(W_loc, mesh, 'samples')
+        return self.weights, 0.5 * float(ss) / n_samples
 
     def inverse_transform(self, weights):
         """Map weights back to data space: ``Z @ archetypes`` (an array

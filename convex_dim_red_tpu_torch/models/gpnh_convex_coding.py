@@ -19,8 +19,12 @@ As in the port's archetypal analysis: :func:`_gpnh_core` is a Python
 loop over device tensors that reads one flag (``stop``) on the host per
 iteration; an estimator's ``random_state`` becomes one
 ``torch.Generator``, and its ``device`` places the data (a numpy array
-goes to the card unless ``device='cpu'``); ``mesh=`` is not ported
-(ROADMAP.md queue 1, item 17).  The cost and convergence scalars are
+goes to the card unless ``device='cpu'``); ``mesh=`` (a DeviceMesh,
+parallel/mesh.py) runs a full fit as one restart of
+``parallel.sharded_aa.sharded_gpnh_fit`` with every rank on the sample
+axis, the generator seeded with the mesh's first rank's seed (a partial
+fit, and so ``transform``, stays on one device).  The
+cost and convergence scalars are
 float64 whatever the data's dtype (:data:`_SCALAR_DTYPE`).
 """
 
@@ -37,7 +41,8 @@ from ..utils.precision import apply_matmul_precision, matmul_precision_scope
 from ..utils.validation import (as_input, check_array_shape,
                                 check_unit_axis_sums)
 from ._common import (QPSolverConfig, make_config, STOPPING_CRITERIA,
-                      _as_generator, _reject_mesh, _run_fit,
+                      _check_mesh, _fit_device, _generator_on, _run_fit,
+                      prepare_estimator_mesh,
                       check_estimator_params, has_converged)
 
 __all__ = [
@@ -157,14 +162,20 @@ def _lstsq(a, b):
     return vh.mH @ (s_inv[..., :, None] * (u.mH @ b))
 
 
+def _solve_gpnh_dictionary(ZtZ, ZtX, GW, lambda_W, n_samples):
+    """``W`` of ``(Z'Z/n + lambda_W G_W) W' = Z'X/n`` by :func:`_lstsq`,
+    from ``Z'Z`` and ``Z'X`` (leading axes are batch axes); returns
+    ``W`` (..., d, k)."""
+    lhs = ZtZ / n_samples + lambda_W * GW
+    return _lstsq(lhs, ZtX / n_samples).transpose(-2, -1)
+
+
 def update_gpnh_dictionary(X, weights, ZtZ, GW, lambda_W=0):
     """Exact dictionary solve ``(Z'Z/n + lambda_W G_W) W' = Z'X/n`` by
     :func:`_lstsq`.  ``weights`` (and ``ZtZ``) may carry leading batch
     axes; returns ``W`` (..., d, k)."""
-    n_samples = X.shape[0]
-    ZtX = weights.transpose(-2, -1) @ X
-    lhs = ZtZ / n_samples + lambda_W * GW
-    return _lstsq(lhs, ZtX / n_samples).transpose(-2, -1)
+    return _solve_gpnh_dictionary(ZtZ, weights.transpose(-2, -1) @ X, GW,
+                                  lambda_W, X.shape[0])
 
 
 def update_gpnh_weights(X, weights, dictionary, component_mask=None,
@@ -381,14 +392,14 @@ class GPNHConvexCoding:
     and fitted attributes ``weights``, ``dictionary``, ``cost``,
     ``n_iter``, ``avg_time_per_iter``, ``cost_deltas``.  The fit runs in
     the data's dtype, on the device that ``device`` gives it;
-    ``random_state``: see the module docstring.  ``mesh`` must be None.
+    ``random_state`` and ``mesh``: see the module docstring.
     """
 
     def __init__(self, n_components, lambda_W=0, init=None,
                  tolerance=1e-6, max_iterations=1000,
                  verbose=0, random_state=None, mesh=None, device=None,
                  **kwargs):
-        _reject_mesh(mesh)
+        _check_mesh(mesh)
         self.n_components = n_components
         self.lambda_W = lambda_W
         self.init = init
@@ -397,7 +408,7 @@ class GPNHConvexCoding:
         self.verbose = verbose
         self.mesh = mesh
         self.device = device
-        self._generator = _as_generator(random_state)
+        self._generator = _generator_on(random_state, 'cpu', mesh=mesh)
         self.require_monotonic_cost_decrease = kwargs.get(
             'require_monotonic_cost_decrease', True)
         self.stopping_criterion = kwargs.get('stopping_criterion',
@@ -417,7 +428,7 @@ class GPNHConvexCoding:
     def _gpnh_convex_coding(self, data, dictionary=None, weights=None,
                             update_dictionary=True, update_weights=True,
                             **kwargs):
-        data = as_input(data, self.device)
+        data = as_input(data, _fit_device(self.mesh, self.device))
         n_samples, n_features = data.shape
 
         if self.n_components is None:
@@ -448,6 +459,9 @@ class GPNHConvexCoding:
         weights, dictionary = (
             torch.as_tensor(a, dtype=data.dtype, device=data.device)
             for a in (weights, dictionary))
+        if self.mesh is not None:
+            if update_dictionary and update_weights:
+                return self._gpnh_sharded(data, weights, dictionary)
         (self.weights, self.dictionary, cost, n_iter, avg_time,
          cost_deltas) = iterate_gpnh_convex_coding(
             data, weights, dictionary, lambda_W=self.lambda_W,
@@ -467,6 +481,31 @@ class GPNHConvexCoding:
                           % self.max_iterations, UserWarning)
 
         return cost, n_iter, avg_time, cost_deltas
+
+    def _gpnh_sharded(self, data, weights, dictionary):
+        """The fit over the estimator's mesh (one restart, every rank on
+        the sample axis)."""
+        # Deferred: parallel imports this module's helpers.
+        from ..parallel.sharded_aa import sharded_gpnh_fit
+
+        mesh = prepare_estimator_mesh(self.mesh, data.shape[0],
+                                      'GPNHConvexCoding(mesh=...)')
+        start = time.perf_counter()
+        res = sharded_gpnh_fit(
+            mesh, data, weights[None], dictionary[None],
+            lambda_W=self.lambda_W, tolerance=self.tolerance,
+            max_iterations=int(self.max_iterations),
+            stopping_criterion=self.stopping_criterion,
+            weights_solver_kwargs=self.weights_solver_kwargs)
+        elapsed = time.perf_counter() - start
+        self.weights = res['weights']
+        self.dictionary = res['dictionary']
+        n_iter = res['n_iter']
+        if n_iter >= self.max_iterations and self.tolerance > 0:
+            warnings.warn('Maximum number of iterations %d reached.'
+                          % self.max_iterations, UserWarning)
+        return (res['cost'], n_iter, elapsed / max(n_iter, 1),
+                res['cost_deltas'][:n_iter])
 
     def fit_transform(self, data, dictionary=None, weights=None, **kwargs):
         """Fit to ``data`` (n_samples, n_features); return the weights."""

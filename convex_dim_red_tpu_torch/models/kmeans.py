@@ -24,8 +24,9 @@ data's device:
 
 The random numbers differ from the JAX package's (``torch.Generator``
 against JAX keys); the algorithms and their stopping rules are the
-same.  ``mesh=`` (the JAX package's sharded fit) is not ported: it
-raises.
+same.  ``KMeans(mesh=...)`` runs ``parallel.sharded_models.
+sharded_kmeans_fit`` (rows over the sample axis, restarts over the
+restart axis).
 """
 
 import math
@@ -34,7 +35,8 @@ import torch
 
 from ..utils.precision import apply_matmul_precision
 from ..utils.validation import as_input
-from ._common import _generator_on, _reject_mesh
+from ._common import (_check_mesh, _fit_device, _generator_on,
+                      prepare_estimator_mesh)
 
 __all__ = ["KMeans", "kmeans_fit", "kmeans_plusplus", "random_init",
            "gap_statistic"]
@@ -135,7 +137,7 @@ def _tol_abs(X, tol):
 
 
 @apply_matmul_precision
-def _lloyd(X, centroids, max_iter, tol_abs):
+def _lloyd(X, centroids, max_iter, tol_abs, reduce=None, agree=None):
     """Lloyd iterations until the squared centroid shift falls below
     ``tol_abs`` or ``max_iter`` iterations.
 
@@ -146,7 +148,16 @@ def _lloyd(X, centroids, max_iter, tol_abs):
     Empty clusters keep their previous centroid; ties go to the first
     centroid.  Returns ``(centroids, labels, inertia, n_iter)`` shaped by
     the batch: ``(..., k, d)``, ``(..., n)``, ``(...)``, ``(...)``.
+
+    A sharded fit passes its own rows as ``X``, and ``reduce``, the sum
+    over its sample group that the cluster counts and sums and the
+    inertia go through, and ``agree``, which maps the host's "is any
+    restart still running" to the group's, so every rank leaves
+    together; the labels stay local.
     """
+    if reduce is None:
+        def reduce(t):
+            return t
     batch_shape = centroids.shape[:-2]
     if X.ndim == 2:
         X = X[None]
@@ -164,13 +175,17 @@ def _lloyd(X, centroids, max_iter, tol_abs):
     n_iter = torch.zeros((T, R), dtype=torch.int64, device=X.device)
     for it in range(int(max_iter)):
         active = shift >= tol
-        if it % _ROUND == 0 and it and not bool(active.any()):
-            break
+        if it % _ROUND == 0 and it:
+            running = bool(active.any())
+            if agree is not None:
+                running = not agree(not running)
+            if not running:
+                break
         _, labels = assign(C)
         onehot = torch.nn.functional.one_hot(labels, k).to(X.dtype)
-        counts = torch.sum(onehot, dim=1)                     # (T, R, k)
-        sums = (onehot.view(T, n, R * k).transpose(1, 2) @ X).view(
-            T, R, k, d)
+        counts = reduce(torch.sum(onehot, dim=1))             # (T, R, k)
+        sums = reduce((onehot.view(T, n, R * k).transpose(1, 2) @ X)
+                      .view(T, R, k, d))
         new = sums / torch.clamp(counts, min=1.0)[..., None]
         new = torch.where((counts > 0)[..., None], new, C)
         new_shift = torch.sum((new - C) ** 2, dim=(-2, -1))
@@ -181,8 +196,8 @@ def _lloyd(X, centroids, max_iter, tol_abs):
     d2, labels = assign(C)
     # Each restart's sum over its own contiguous row, in the same order
     # whatever R is.
-    inertia = torch.sum(torch.amin(d2, dim=-1).transpose(1, 2)
-                        .contiguous(), dim=-1)                # (T, R)
+    inertia = reduce(torch.sum(torch.amin(d2, dim=-1).transpose(1, 2)
+                               .contiguous(), dim=-1))        # (T, R)
     return (C.reshape(batch_shape + (k, d)),
             labels.permute(0, 2, 1).reshape(batch_shape + (n,)),
             inertia.reshape(batch_shape), n_iter.reshape(batch_shape))
@@ -221,8 +236,12 @@ class KMeans:
     ``n_iter_``, as the JAX package's.  ``device``: where a numpy input
     goes (:func:`utils.validation.as_input`: the card unless
     ``device='cpu'``); ``random_state``: an integer, None, a
-    ``numpy.random.RandomState`` or a ``torch.Generator``.  ``mesh``
-    must be None."""
+    ``numpy.random.RandomState`` or a ``torch.Generator``.  ``mesh`` (a
+    DeviceMesh, see parallel/mesh.py) runs
+    ``parallel.sharded_models.sharded_kmeans_fit``: rows over the sample
+    axis, the restarts over the restart axis (``n_init`` padded up to a
+    multiple of it, the pads out of the selection), on the mesh's
+    device."""
 
     def __init__(self, n_clusters, init='k-means++', n_init=10,
                  max_iter=300, tol=1e-4, random_state=None, mesh=None,
@@ -230,7 +249,7 @@ class KMeans:
         if init not in _SEEDINGS:
             raise ValueError("init must be 'k-means++' or 'random' "
                              "(reference run_hadisst_kmeans.py:48-49)")
-        _reject_mesh(mesh)
+        _check_mesh(mesh)
         self.init = init
         self.n_clusters = n_clusters
         self.n_init = n_init
@@ -246,7 +265,9 @@ class KMeans:
         self.n_iter_ = None
 
     def fit(self, X):
-        X = as_input(X, self.device)
+        X = as_input(X, _fit_device(self.mesh, self.device))
+        if self.mesh is not None:
+            return self._fit_sharded(X)
         centroids, labels, inertia, n_iter = kmeans_fit(
             X, _generator_on(self.random_state, X.device),
             n_clusters=self.n_clusters, n_init=self.n_init,
@@ -255,6 +276,26 @@ class KMeans:
         self.labels_ = labels.cpu().numpy()
         self.inertia_ = float(inertia)
         self.n_iter_ = int(n_iter)
+        return self
+
+    def _fit_sharded(self, X):
+        """The fit over the estimator's mesh: rows over the sample
+        axis, the ``n_init`` restarts over the restart axis."""
+        # Deferred: parallel imports this module.
+        from ..parallel.sharded_models import sharded_kmeans_fit
+
+        mesh = prepare_estimator_mesh(self.mesh, X.shape[0],
+                                      'KMeans(mesh=...)', single_fit=False)
+        r_shards = mesh.size(mesh.mesh_dim_names.index('restarts'))
+        res = sharded_kmeans_fit(
+            mesh, X, self.random_state, n_clusters=self.n_clusters,
+            n_init=-(-int(self.n_init) // r_shards) * r_shards,
+            max_iter=self.max_iter, tol=self.tol, init=self.init,
+            n_valid_restarts=int(self.n_init))
+        self.cluster_centers_ = res['centroids']
+        self.labels_ = res['labels'].cpu().numpy()
+        self.inertia_ = res['inertia']
+        self.n_iter_ = res['n_iter']
         return self
 
     def fit_predict(self, X):
@@ -288,9 +329,13 @@ class KMeans:
 
 
 @apply_matmul_precision
-def _reference_wks(X, generator, *, n_clusters, n_trials, reference):
-    """The best-of-:data:`_GAP_N_INIT` k-means inertia of each of
-    ``n_trials`` reference draws, a (n_trials,) tensor.
+def _reference_wks(X, generator, *, n_clusters, n_trials, reference,
+                   n_init=_GAP_N_INIT, max_iter=_GAP_MAX_ITER,
+                   trials=slice(None)):
+    """The best-of-``n_init`` k-means inertia of each of ``n_trials``
+    reference draws (at most ``max_iter`` Lloyd iterations), a tensor;
+    ``trials`` (a slice) computes only those trials, as a sharded gap
+    statistic does.
 
     'uniform': each draw is uniform in the per-feature box of ``X``
     (reference kmeans.py:18-34); 'pca': uniform in the box of ``X``'s
@@ -311,7 +356,7 @@ def _reference_wks(X, generator, *, n_clusters, n_trials, reference):
     lo = torch.amin(box, dim=0)
     span = torch.amax(box, dim=0) - lo
     seeds = torch.randint(0, 2 ** 62, (int(n_trials),), generator=generator,
-                          device=generator.device).tolist()
+                          device=generator.device).tolist()[trials]
     per = max(1, min(len(seeds), _BATCH_ELEMENTS // max(n * d, 1)))
     wks = []
     for s in range(0, len(seeds), per):
@@ -325,11 +370,13 @@ def _reference_wks(X, generator, *, n_clusters, n_trials, reference):
         if basis is not None:
             draws = draws @ basis
         seeded = torch.stack([
-            kmeans_plusplus(draw, n_clusters, gen, n_init=_GAP_N_INIT)
+            kmeans_plusplus(draw, n_clusters, gen, n_init=n_init)
             for draw, gen in zip(draws, gens)])
-        _, _, inertia, _ = _lloyd(draws, seeded, _GAP_MAX_ITER,
+        _, _, inertia, _ = _lloyd(draws, seeded, max_iter,
                                   _tol_abs(draws, _GAP_TOL))
         wks.append(torch.amin(inertia, dim=1))
+    if not wks:
+        return torch.zeros((0,), dtype=X.dtype, device=X.device)
     return torch.cat(wks)
 
 

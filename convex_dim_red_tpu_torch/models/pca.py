@@ -7,9 +7,9 @@ eigendecomposition of the ``n x n`` Gram matrix.  The data's device is
 set by the estimator's ``device`` (see
 :func:`utils.validation.as_input`): a numpy array goes to the card
 unless ``device='cpu'``.  Eigenvector signs are arbitrary, as in the
-JAX package; nothing downstream depends on them.  ``mesh=`` (the JAX
-package's feature-sharded fit) is not ported: multi-GPU is ROADMAP.md
-queue 1, item 17.
+JAX package; nothing downstream depends on them.  ``PCA(mesh=...)``
+runs ``parallel.sharded_models.sharded_pca``: the Gram path with the
+features split over the mesh's sample axis.
 """
 
 import numpy as np
@@ -17,7 +17,7 @@ import torch
 
 from ..utils.precision import apply_matmul_precision
 from ..utils.validation import as_input
-from ._common import _reject_mesh
+from ._common import _check_mesh, _fit_device, prepare_estimator_mesh
 
 __all__ = ["PCA", "pca_fit"]
 
@@ -63,11 +63,13 @@ class PCA:
     ``singular_values_`` and ``noise_variance_``.  ``tol`` and
     ``random_state`` are accepted for parity and unused (the SVD and
     ``eigh`` are exact).  ``device``: where the data goes (see the
-    module docstring); ``mesh`` must be None."""
+    module docstring); ``mesh`` (a DeviceMesh whose restart axis has
+    size 1) fits on the Gram path with the features split over its
+    sample axis, on the mesh's device."""
 
     def __init__(self, n_components, center=True, use_gram='auto',
                  tol=0.0, random_state=None, mesh=None, device=None):
-        _reject_mesh(mesh)
+        _check_mesh(mesh)
         self.n_components = n_components
         self.center = center
         self.use_gram = use_gram
@@ -88,13 +90,17 @@ class PCA:
         return self
 
     def fit_transform(self, X):
-        X = as_input(X, self.device)
+        X = as_input(X, _fit_device(self.mesh, self.device))
         n_samples, n_features = X.shape
-        use_gram = (n_features > 4 * n_samples if self.use_gram == 'auto'
-                    else bool(self.use_gram))
-        components, explained, mean, scores = pca_fit(
-            X, n_components=int(self.n_components), center=self.center,
-            use_gram=use_gram)
+        if self.mesh is not None:
+            components, explained, mean, scores = self._fit_sharded(X)
+        else:
+            use_gram = (n_features > 4 * n_samples
+                        if self.use_gram == 'auto'
+                        else bool(self.use_gram))
+            components, explained, mean, scores = pca_fit(
+                X, n_components=int(self.n_components),
+                center=self.center, use_gram=use_gram)
         self.components_ = components
         self.explained_variance_ = explained.cpu().numpy()
         self.mean_ = mean
@@ -117,9 +123,22 @@ class PCA:
             self.noise_variance_ = 0.0
         return scores
 
+    def _fit_sharded(self, X):
+        """The Gram-path fit with the features split over the mesh."""
+        # Deferred: parallel imports models.
+        from ..parallel.sharded_models import sharded_pca
+
+        mesh = prepare_estimator_mesh(self.mesh, X.shape[1],
+                                      'PCA(mesh=...)',
+                                      dim_name='n_features')
+        res = sharded_pca(mesh, X, n_components=int(self.n_components),
+                          center=self.center)
+        return (res['components'], res['explained_variance'],
+                res['mean'], res['scores'])
+
     @apply_matmul_precision
     def transform(self, X):
-        X = as_input(X, self.device)
+        X = as_input(X, _fit_device(self.mesh, self.device))
         return (X - self.mean_[None, :]) @ self.components_.T
 
     @apply_matmul_precision

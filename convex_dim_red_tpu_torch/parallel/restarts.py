@@ -28,44 +28,101 @@ QP (:func:`_padded_components`), so the fit is exactly an
 ``n_components`` model; the outputs are sliced back to
 ``n_components``.
 
-Meshes are a later slice of the port (ROADMAP.md, queue 1, item 17);
-the vmapped per-restart path (``grouped=False``) is not ported (item
-18).
+With ``mesh=`` the restarts split over the mesh's ``restart_axis``
+(:class:`_RestartGroups`, the JAX package's per-group compaction): every
+rank draws the initial states of all restarts from the same generator
+and seed, pads them to a multiple of the axis by tiling, keeps its
+contiguous block and runs :func:`_compacted_best` on its own restarts,
+with no collective inside the loops; the costs are then gathered, the
+argmin chosen and the winner's state broadcast from its group.  A
+screened fit prunes globally: every screen cost is gathered and ranked,
+and the survivors are dealt out to the restart groups afresh.  So
+``n_kept``, the survivors and the winner are the single-device run's.
+A sample axis of the mesh, if any, replicates the work.  The vmapped
+per-restart path (``grouped=False``) is not ported (ROADMAP.md queue 1,
+item 18).
 """
 
 import numpy as np
 import torch
 
 from ..models._common import (QPSolverConfig, SPGSolverConfig,
-                              STOPPING_CRITERIA, _generator_on,
-                              _reject_mesh, make_config)
-from ..models.archetypal_analysis import (_cost_from_parts, _scalar_dtype,
+                              STOPPING_CRITERIA, _fit_device,
+                              _generator_on, make_config)
+from ..models.archetypal_analysis import (_scalar_dtype,
                                           _spg_cfg_to_quad_kwargs)
-from ..models.gpnh_convex_coding import (_SCALAR_DTYPE as _GPNH_SDT,
-                                         _cost_from_parts as
-                                         _gpnh_cost_from_parts,
-                                         _gpnh_gram, _gpnh_gram_masked,
-                                         gpnh_regularization,
-                                         gpnh_regularization_masked,
-                                         update_gpnh_dictionary)
 from ..ops.furthest_sum import (dissimilarities_from_kernel,
                                 furthest_sum_device)
-from ..ops.simplex_projection import simplex_project_rows
 from ..ops.stochastic_matrices import right_stochastic_matrix
-from ..solvers.spg import (quad_simplex_spg_batch_grouped, quad_spg,
-                           resolve_qp_backend)
+from ..solvers.spg import resolve_qp_backend
 from ..utils.precision import apply_matmul_precision
 from ..utils.validation import as_input
-from .sharded_aa import _keep_best_loop
+from .mesh import (_all_gather, _axis, _broadcast, mesh_device,
+                   require_device_mesh)
+from .sharded_aa import (_aa_iterate, _gpnh_iterate, _keep_best_loop,
+                         _Shard)
 
 __all__ = ["aa_fit_restarts", "kernel_aa_fit_restarts",
-           "gpnh_fit_restarts"]
+           "gpnh_fit_restarts", "select_best"]
 
 #: Iterations a round under ``compact_iterations=None`` and in both
 #: phases of a screened fit: the JAX package's one-shot runner reads no
 #: scalar until every restart is done; here the host reads the round's
 #: scalars once every 32.
 _ONE_SHOT_ROUND = 32
+
+
+def select_best(costs, state):
+    """The argmin-cost slice of each tensor of a stacked result: ``state``
+    a tensor, or a tuple, list or dict of tensors, with the restart axis
+    first."""
+    best = int(torch.argmin(torch.as_tensor(costs)))
+    if isinstance(state, dict):
+        return {k: v[best] for k, v in state.items()}
+    if isinstance(state, (tuple, list)):
+        return type(state)(v[best] for v in state)
+    return state[best]
+
+
+class _RestartGroups:
+    """The restart axis of a mesh as a restart population sees it: the
+    population is padded by tiling to a multiple of the axis and split
+    in contiguous blocks, one a group (the JAX package's ``_pad_keys``
+    and per-group compaction); a rank runs only its block's real
+    restarts.  Every collective runs on the restart axis."""
+
+    def __init__(self, mesh, restart_axis):
+        self.mesh = mesh
+        self.axis = restart_axis
+        self.size, self.index, _ = _axis(mesh, restart_axis)
+        self.device = mesh_device(mesh)
+
+    def block(self, R):
+        """``(ids, R_loc)``: the global indices of this group's real
+        restarts and the padded block width."""
+        R_loc = -(-R // self.size)
+        lo = self.index * R_loc
+        return np.arange(lo, min(lo + R_loc, R)), R_loc
+
+    def gather(self, values, R_loc, R, fill):
+        """Every group's block of per-restart numbers, in global order
+        (numpy float64, length ``R``)."""
+        t = torch.full((R_loc,), fill, dtype=torch.float64,
+                       device=self.device)
+        t[:len(values)] = torch.as_tensor(np.asarray(values, np.float64))
+        return _all_gather(t, self.mesh, self.axis).cpu().numpy()[:R]
+
+    def gather_states(self, states, R_loc, R):
+        """Every group's block of each state tensor, in global order."""
+        out = []
+        for s in states:
+            pad = s.new_zeros((R_loc,) + tuple(s.shape[1:]))
+            pad[:s.shape[0]] = s
+            out.append(_all_gather(pad, self.mesh, self.axis)[:R])
+        return tuple(out)
+
+    def broadcast(self, tensors, owner):
+        return [_broadcast(t, self.mesh, self.axis, owner) for t in tensors]
 
 
 def _padded_components(n_components, pad_components_to):
@@ -137,83 +194,24 @@ def _init_aa_state(generator, n_init, delta, *, n_samples, n_components,
 def _aa_grouped_iterate(X, K, *, delta, do_scale, has_data, dict_kwargs,
                         weights_backend, weights_kwargs, scale_kwargs,
                         trace_K, component_mask=None):
-    """Restart-batched AA alternating iterate with the weights QP
-    grouped across restarts.
-
-    Every operand carries the restart axis first.  Per iteration, in the
-    reference's order: the scale factors (with ``do_scale``, a
-    :func:`quad_spg` over a box), the dictionary (one
-    :func:`quad_spg` step batch over the simplex rows of ``C``), then
-    the weights QPs of all restarts in one
-    :func:`quad_simplex_spg_batch_grouped` call, then the cost.
+    """Restart-batched AA alternating iterate on one device, with the
+    weights QP grouped across restarts: ``sharded_aa._aa_iterate`` with
+    no mesh.  Every operand carries the restart axis first.
 
     ``has_data``: ``X`` is the data and the cost is the residual form
-    ``0.5 ||Z diag(alpha) C X - X||^2 / n`` (reliable in float32);
-    otherwise the cost is the trace form from ``trace_K``.
-    ``component_mask`` (a padded fit) goes only to the weights QP, which
-    pins the padded columns of ``Z`` to 0; the padded rows of ``C`` then
-    get a zero gradient and do not reach the cost.
+    ``0.5 ||Z diag(alpha) C X - X||^2 / n``; otherwise the cost is the
+    trace form from ``trace_K`` on the kernel ``K``.
+    ``component_mask`` runs a padded fit.
 
     Returns ``(iterate, cost0)``: ``iterate(Zs, Cs, alphas) -> (Zs, Cs,
     alphas, costs)`` and ``cost0(Zs, Cs, alphas)``, the initial costs.
     """
-    n_samples = K.shape[0]
-    sdt = _scalar_dtype(K.dtype)
-
-    def pre(Z, C, alpha):
-        ZtZ = Z.transpose(1, 2) @ Z
-        KZ = K @ Z
-        if do_scale:
-            CK0 = C @ K
-            CKZ = CK0 @ Z
-            CKCt0 = CK0 @ C.transpose(1, 2)
-            M = ZtZ * CKCt0
-
-            def project(a):
-                return torch.clamp(a, 1.0 - delta, 1.0 + delta)
-
-            alpha = quad_spg(
-                lambda a: (M @ a[:, :, None])[:, :, 0] / n_samples,
-                torch.diagonal(CKZ, dim1=1, dim2=2) / n_samples, alpha,
-                project, **scale_kwargs)
-        KZD = KZ * alpha[:, None, :]
-        DZtZD = (alpha[:, :, None] * ZtZ) * alpha[:, None, :]
-        C = quad_spg(lambda Cm: DZtZD @ (Cm @ K) / n_samples,
-                     KZD.transpose(1, 2) / n_samples, C,
-                     simplex_project_rows, **dict_kwargs)
-        CK = C @ K
-        CKCt = CK @ C.transpose(1, 2)
-        A = (alpha[:, :, None] * CKCt) * alpha[:, None, :]
-        Bw = -(alpha[:, :, None] * CK).transpose(1, 2)
-        return C, alpha, A, Bw, CK, CKCt
-
-    def cost_of(Z, C, alpha, CK, CKCt):
-        if has_data:
-            CX = C @ X
-            resid = Z @ (alpha[:, :, None] * CX)
-            # In place: the (R, n, d) residual is the largest buffer of
-            # the fit.
-            resid -= X
-            resid.square_()
-            return (0.5 * torch.sum(resid, dim=(1, 2))
-                    / n_samples).to(sdt)
-        CKZ = CK @ Z
-        ZtZ = Z.transpose(1, 2) @ Z
-        return _cost_from_parts(trace_K, CKZ, ZtZ, CKCt, alpha, n_samples)
-
-    def iterate(Zs, Cs, alphas):
-        Cs, alphas, As, Bws, CKs, CKCts = pre(Zs, Cs, alphas)
-        Zs = quad_simplex_spg_batch_grouped(
-            As, Bws, Zs, backend=weights_backend, mask=component_mask,
-            **weights_kwargs)
-        costs = cost_of(Zs, Cs, alphas, CKs, CKCts)
-        return Zs, Cs, alphas, costs
-
-    def cost0(Zs, Cs, alphas):
-        CK = Cs @ K
-        return cost_of(Zs, Cs, alphas, CK, CK @ Cs.transpose(1, 2))
-
-    return iterate, cost0
+    return _aa_iterate(
+        X if has_data else None, K, delta=delta, do_scale=do_scale,
+        dict_kwargs=dict_kwargs, weights_backend=weights_backend,
+        weights_kwargs=weights_kwargs, scale_kwargs=scale_kwargs,
+        sh=_Shard(device=K.device), trace_K=trace_K,
+        component_mask=component_mask)
 
 
 def _grouped_solver_kwargs(dict_cfg, weights_cfg, scale_cfg):
@@ -324,11 +322,17 @@ def _compacted_best(R, states_all, *, max_iterations, restart_chunk,
 
 
 def _best_of_compacted(states, round_call, *, max_iterations,
-                       restart_chunk, round_iterations):
+                       restart_chunk, round_iterations, groups=None):
     """:func:`_compacted_best` from the initial ``states`` (not
     modified).  Returns ``((*best_state, trace, best_cost,
     best_n_iter), costs, n_iters)``, ``costs`` and ``n_iters`` numpy
-    arrays over all restarts."""
+    arrays over all restarts.  With ``groups`` (a
+    :class:`_RestartGroups`) each rank runs its block of ``states`` and
+    every rank returns the global result."""
+    if groups is not None:
+        return _group_best_of_compacted(
+            states, round_call, groups, max_iterations=max_iterations,
+            restart_chunk=restart_chunk, round_iterations=round_iterations)
     states_all = tuple(s.clone() for s in states)
     states_all, costs, n_iters, traces, best = _compacted_best(
         states_all[0].shape[0], states_all, max_iterations=max_iterations,
@@ -340,9 +344,41 @@ def _best_of_compacted(states, round_call, *, max_iterations,
              int(n_iters[best])), costs, n_iters)
 
 
+def _group_best_of_compacted(states, round_call, groups, **schedule):
+    """:func:`_best_of_compacted` over the restart groups of a mesh: this
+    group's real restarts run here, the costs and iteration counts of
+    all are gathered, and the winner (the lowest global index among
+    equal costs) comes from its group by broadcast."""
+    R = states[0].shape[0]
+    ids, R_loc = groups.block(R)
+    costs_loc = iters_loc = ()
+    best_loc = None
+    if len(ids):
+        idx = torch.as_tensor(ids, device=states[0].device)
+        best_loc, costs_loc, iters_loc = _best_of_compacted(
+            tuple(s[idx] for s in states), round_call, **schedule)
+    costs = groups.gather(costs_loc, R_loc, R, np.inf)
+    n_iters = groups.gather(iters_loc, R_loc, R, 0).astype(np.int64)
+    best = int(np.argmin(costs))
+    owner = best // R_loc
+    n_iter = int(n_iters[best])
+    if best_loc is not None and owner == groups.index:
+        parts = list(best_loc[:-3]) + [torch.as_tensor(
+            best_loc[-3][:n_iter], dtype=torch.float64,
+            device=groups.device)]
+    else:
+        parts = [s[0].new_zeros(s.shape[1:]) for s in states] + [
+            torch.zeros((n_iter,), dtype=torch.float64,
+                        device=groups.device)]
+    parts = groups.broadcast(parts, owner)
+    best_tuple = (*parts[:-1], parts[-1].cpu().numpy(), float(costs[best]),
+                  n_iter)
+    return best_tuple, costs, n_iters
+
+
 def _screened_best(states, round_call, *, max_iterations,
                    screen_iterations, restart_chunk, screen_keep,
-                   screen_margin=None):
+                   screen_margin=None, groups=None):
     """Screened keep-best: screen every restart, prune, resume the best
     (the JAX package's ``_screened_best``, for both families).
 
@@ -368,12 +404,31 @@ def _screened_best(states, round_call, *, max_iterations,
     numpy; ``screen`` the diagnostics ``n_screened``, ``n_kept``,
     ``screen_cut`` and ``screen_margin_observed``, the best pruned
     screened cost minus the worst kept (``inf`` when none is pruned).
+
+    With ``groups`` (a mesh's :class:`_RestartGroups`) each group
+    screens its block; the screen costs and screened states are
+    gathered, so the prune is global, and the survivors are dealt out
+    to the groups afresh for the resume.
     """
     R = states[0].shape[0]
-    screened, screen_costs, screen_iters, _, _ = _compacted_best(
-        R, tuple(s.clone() for s in states),
-        max_iterations=int(screen_iterations), restart_chunk=restart_chunk,
-        round_iterations=_ONE_SHOT_ROUND, round_call=round_call)
+    screen = dict(max_iterations=int(screen_iterations),
+                  restart_chunk=restart_chunk,
+                  round_iterations=_ONE_SHOT_ROUND, round_call=round_call)
+    if groups is None:
+        screened, screen_costs, screen_iters, _, _ = _compacted_best(
+            R, tuple(s.clone() for s in states), **screen)
+    else:
+        ids, R_loc = groups.block(R)
+        local = tuple(s[torch.as_tensor(ids, device=s.device)].clone()
+                      for s in states)
+        screen_costs = screen_iters = ()
+        if len(ids):
+            local, screen_costs, screen_iters, _, _ = _compacted_best(
+                len(ids), local, **screen)
+        screened = groups.gather_states(local, R_loc, R)
+        screen_costs = groups.gather(screen_costs, R_loc, R, np.inf)
+        screen_iters = groups.gather(screen_iters, R_loc, R,
+                                     0).astype(np.int64)
 
     order = np.argsort(screen_costs)
     n_keep = max(1, int(np.ceil(float(screen_keep) * R)))
@@ -396,7 +451,7 @@ def _screened_best(states, round_call, *, max_iterations,
     best, res_costs, res_iters = _best_of_compacted(
         tuple(s[idx] for s in screened), round_call,
         max_iterations=int(max_iterations), restart_chunk=restart_chunk,
-        round_iterations=_ONE_SHOT_ROUND)
+        round_iterations=_ONE_SHOT_ROUND, groups=groups)
 
     costs = screen_costs.copy()
     n_iters = screen_iters.copy()
@@ -439,7 +494,7 @@ def _make_aa_grouped_round_run(X, gram, *, delta, tolerance, statics,
 @apply_matmul_precision
 def _compacted_aa_best(X, states, delta, tolerance, *, statics,
                        grouped_backend, restart_chunk, round_iterations,
-                       gram=None, component_mask=None):
+                       gram=None, component_mask=None, groups=None):
     """Multi-restart AA with convergence compaction, from given initial
     states ``(Zs, Cs, alphas)`` (see :func:`_compacted_best`;
     ``statics`` as in :func:`_aa_grouped_parts`).  Returns ``(best,
@@ -451,14 +506,15 @@ def _compacted_aa_best(X, states, delta, tolerance, *, statics,
                                      component_mask=component_mask)
     return _best_of_compacted(
         states, run, max_iterations=int(statics['max_iterations']),
-        restart_chunk=restart_chunk, round_iterations=round_iterations)
+        restart_chunk=restart_chunk, round_iterations=round_iterations,
+        groups=groups)
 
 
 @apply_matmul_precision
 def _screened_aa_best(X, states, delta, tolerance, *, statics,
                       grouped_backend, restart_chunk, screen_iterations,
                       screen_keep, screen_margin=None, gram=None,
-                      component_mask=None):
+                      component_mask=None, groups=None):
     """Screened multi-restart AA (:func:`_screened_best`) from given
     initial states ``(Zs, Cs, alphas)``, both phases on the round runner
     of :func:`_compacted_aa_best`.  Returns ``(best, costs, n_iters,
@@ -470,16 +526,32 @@ def _screened_aa_best(X, states, delta, tolerance, *, statics,
     return _screened_best(
         states, run, max_iterations=int(statics['max_iterations']),
         screen_iterations=screen_iterations, restart_chunk=restart_chunk,
-        screen_keep=screen_keep, screen_margin=screen_margin)
+        screen_keep=screen_keep, screen_margin=screen_margin,
+        groups=groups)
 
 
-def _reject_unported(mesh, grouped):
-    _reject_mesh(mesh)
+def _reject_unported(grouped):
     if grouped is not None and not grouped:
         raise ValueError("grouped=False selects the vmapped per-restart "
                          "path, which is not ported (ROADMAP.md queue 1, "
                          "item 18); the grouped runners are the only "
                          "restart structure")
+
+
+def _check_restart_mesh(mesh, restart_axis):
+    """A restart-sharded fit's ``mesh``: None, or a DeviceMesh with the
+    axis ``restart_axis`` (any other axis replicates the work); anything
+    else raises ``ValueError`` naming ``mesh``."""
+    if mesh is None:
+        return
+    require_device_mesh(mesh)
+    if restart_axis not in (mesh.mesh_dim_names or ()):
+        raise ValueError("mesh has no restart axis %r; got axis_names=%r"
+                         % (restart_axis, tuple(mesh.mesh_dim_names)))
+
+
+def _restart_groups(mesh, restart_axis):
+    return None if mesh is None else _RestartGroups(mesh, restart_axis)
 
 
 def _validate_compaction(compact_iterations, screen_iterations):
@@ -494,9 +566,10 @@ def _validate_compaction(compact_iterations, screen_iterations):
                          "pruning heuristic)")
 
 
-def _check_fit_args(stopping_criterion, n_init, mesh, grouped,
+def _check_fit_args(stopping_criterion, n_init, mesh, restart_axis, grouped,
                     compact_iterations, screen_iterations):
-    _reject_unported(mesh, grouped)
+    _check_restart_mesh(mesh, restart_axis)
+    _reject_unported(grouped)
     _validate_compaction(compact_iterations, screen_iterations)
     if stopping_criterion not in STOPPING_CRITERIA:
         raise ValueError("unsupported stopping criterion %r"
@@ -533,13 +606,14 @@ def _aa_restarts(X, gram, n_components, generator, n_init, *, has_data,
                  stopping_criterion, dictionary_solver_kwargs,
                  weights_solver_kwargs, scale_factors_solver_kwargs,
                  restart_chunk, pad_components_to, screen_iterations,
-                 screen_keep, screen_margin, compact_iterations):
+                 screen_keep, screen_margin, compact_iterations, mesh,
+                 restart_axis):
     """The fit of :func:`aa_fit_restarts` (``has_data``: ``X`` is the
     data, ``gram`` its Gram) and :func:`kernel_aa_fit_restarts` (both
     the kernel).  Returns ``(Z, C, alpha, out)``: the winner's factors
     sliced back to ``n_components`` and the result dict's scalars and
     per-restart arrays."""
-    generator = _generator_on(generator, X.device)
+    generator = _generator_on(generator, X.device, mesh=mesh)
     k_out = int(n_components)
     k_fit, component_mask = _padded_components(k_out, pad_components_to)
 
@@ -565,7 +639,8 @@ def _aa_restarts(X, gram, n_components, generator, n_init, *, has_data,
         device=X.device)
     common = dict(statics=statics, grouped_backend=grouped_backend,
                   restart_chunk=restart_chunk, gram=gram,
-                  component_mask=component_mask)
+                  component_mask=component_mask,
+                  groups=_restart_groups(mesh, restart_axis))
     args = (X, states, float(delta), float(tolerance))
     best, costs, n_iters, screen = _schedule(
         lambda **kw: _compacted_aa_best(*args, **common, **kw),
@@ -603,7 +678,8 @@ def aa_fit_restarts(data, n_components, generator, n_init, delta=0.0,
                     screen_iterations=None, screen_keep=0.25,
                     screen_margin=None, grouped=None,
                     compact_iterations=None, device=None):
-    """Best-of-``n_init`` archetypal analysis on one device.
+    """Best-of-``n_init`` archetypal analysis, on one device or over the
+    restart axis of a mesh.
 
     ``data``: (n_samples, n_features) tensor or array; the fit runs in
     its dtype, on ``device`` if given, else on a tensor's own device,
@@ -651,23 +727,28 @@ def aa_fit_restarts(data, n_components, generator, n_init, delta=0.0,
     of ``k``; the port compiles nothing per ``k``, so padding only adds
     width (the sweeps' ``component_bucket`` is off by default).
 
-    ``grouped`` is None or True; False (the vmapped path) and ``mesh``
-    raise ``ValueError`` naming the ROADMAP.md item that ports them.
-    ``restart_axis`` names a mesh axis, and is unused without one.
+    ``mesh`` (a DeviceMesh with the axis ``restart_axis``; see
+    :mod:`.mesh`) splits the restarts over the restart groups: every
+    rank calls with the same arguments, runs its block of the
+    restarts (padded by tiling to a multiple of the axis, the pads out of
+    the selection) on the mesh's device, and returns the whole result;
+    screening prunes over all restarts.  The winner, its cost, ``costs``
+    and ``n_iters`` are the single-device run's from the same seed.
+    ``grouped`` is None or True; False (the vmapped path) raises
+    ``ValueError`` naming the ROADMAP.md item that keeps it out.
 
     Returns a dict with the best restart's ``weights``, ``dictionary``,
     ``alpha``, ``archetypes`` (tensors), ``cost`` and ``n_iter``, its
     ``cost_deltas``, and ``costs``, ``n_iters`` and ``best_index`` over
     all restarts (numpy), and ``screen`` when screened.
     """
-    del restart_axis  # a mesh axis: mesh= raises
-    _check_fit_args(stopping_criterion, n_init, mesh, grouped,
-                    compact_iterations, screen_iterations)
+    _check_fit_args(stopping_criterion, n_init, mesh, restart_axis,
+                    grouped, compact_iterations, screen_iterations)
     if init not in ('random', 'furthest_sum'):
         raise ValueError("init must be 'random' or 'furthest_sum', got %r"
                          % (init,))
 
-    X = as_input(data, device)
+    X = as_input(data, _fit_device(mesh, device))
     # The Gram, once per fit: every round and chunk takes it.
     gram = _gram_once(X)
     Z, C, alpha, out = _aa_restarts(
@@ -680,7 +761,8 @@ def aa_fit_restarts(data, n_components, generator, n_init, delta=0.0,
         scale_factors_solver_kwargs=scale_factors_solver_kwargs,
         restart_chunk=restart_chunk, pad_components_to=pad_components_to,
         screen_iterations=screen_iterations, screen_keep=screen_keep,
-        screen_margin=screen_margin, compact_iterations=compact_iterations)
+        screen_margin=screen_margin, compact_iterations=compact_iterations,
+        mesh=mesh, restart_axis=restart_axis)
     dictionary = alpha[:, None] * C if float(delta) != 0.0 else C
     return dict(weights=Z, dictionary=dictionary, alpha=alpha,
                 archetypes=dictionary @ X, **out)
@@ -703,7 +785,7 @@ def kernel_aa_fit_restarts(kernel, n_components, generator, n_init,
     matrix, for ``KernelAA`` users.
 
     :func:`aa_fit_restarts` on a kernel: the same arguments, schedulers
-    (compaction, screening), padded ``k`` and device rule, with
+    (compaction, screening), padded ``k``, device rule and ``mesh``, with
     FurthestSum on the kernel's dissimilarities and the trace-form cost
     ``0.5 (tr K - 2 tr(diag(alpha) C K Z) + tr(Z'Z diag(alpha) C K C'
     diag(alpha))) / n``, as there is no data matrix.
@@ -715,14 +797,13 @@ def kernel_aa_fit_restarts(kernel, n_components, generator, n_init,
     ``dictionary`` is ``C`` itself, not ``diag(alpha) C`` as in
     :func:`aa_fit_restarts` (as in the JAX package).
     """
-    del restart_axis  # a mesh axis: mesh= raises
-    _check_fit_args(stopping_criterion, n_init, mesh, grouped,
-                    compact_iterations, screen_iterations)
+    _check_fit_args(stopping_criterion, n_init, mesh, restart_axis,
+                    grouped, compact_iterations, screen_iterations)
     if init not in ('random', 'furthest_sum'):
         raise ValueError("init must be 'random' or 'furthest_sum', got %r"
                          % (init,))
 
-    K = as_input(kernel, device)
+    K = as_input(kernel, _fit_device(mesh, device))
     if K.ndim != 2 or K.shape[0] != K.shape[1]:
         raise ValueError("expected a square kernel matrix, got shape %s"
                          % (tuple(K.shape),))
@@ -736,7 +817,8 @@ def kernel_aa_fit_restarts(kernel, n_components, generator, n_init,
         scale_factors_solver_kwargs=scale_factors_solver_kwargs,
         restart_chunk=restart_chunk, pad_components_to=pad_components_to,
         screen_iterations=screen_iterations, screen_keep=screen_keep,
-        screen_margin=screen_margin, compact_iterations=compact_iterations)
+        screen_margin=screen_margin, compact_iterations=compact_iterations,
+        mesh=mesh, restart_axis=restart_axis)
     return dict(weights=Z, dictionary=C, alpha=alpha, **out)
 
 
@@ -789,65 +871,18 @@ def _init_gpnh_state(generator, X, diss, n_init, *, n_components, init,
 
 def _gpnh_grouped_iterate(X, *, lambda_W, weights_backend, weights_kwargs,
                           n_components, component_mask=None):
-    """Restart-batched GPNH iterate with the weights QP grouped across
-    restarts: per iteration the exact k x k dictionary solve of every
-    restart (``update_gpnh_dictionary``: one batched SVD),
-    then the weights QPs of all restarts in one
-    :func:`quad_simplex_spg_batch_grouped` call, then the trace-form
-    cost in float64.  ``lambda_W`` is a number.
-
-    ``component_mask`` runs a padded fit: the masked GPNH Gram and
-    penalty (active-k prefactor over the active columns), the padded
-    columns of ``W`` set to 0 after each dictionary solve (``Z'Z`` is
-    zero there, so the solve's system is singular by construction and
-    the least-squares cutoff drops those directions), and the mask in
-    the weights QP.
+    """Restart-batched GPNH iterate on one device, with the weights QP
+    grouped across restarts: ``sharded_aa._gpnh_iterate`` with no mesh
+    (the exact k x k dictionary solves, one grouped weights call, the
+    trace-form cost in float64).  ``component_mask`` runs a padded fit.
 
     Returns ``(iterate, cost0)``: ``iterate(Zs, Ws) -> (Zs, Ws, costs)``
     and ``cost0(Zs, Ws)``, the initial costs.
     """
-    n_samples, n_features = X.shape
-    sdt = _GPNH_SDT
-    lambda_W = float(lambda_W)
-    trace_XtX = torch.sum(X.to(sdt) * X.to(sdt))
-    if component_mask is None:
-        GW = _gpnh_gram(n_features, n_components, X.dtype, X.device)
-    else:
-        mask = component_mask.to(X.device)
-        keep = mask.to(X.dtype)
-        GW = _gpnh_gram_masked(n_features, mask, X.dtype, X.device)
-
-    def penalty(Ws):
-        if lambda_W == 0:
-            return torch.zeros(Ws.shape[:1], dtype=sdt, device=Ws.device)
-        if component_mask is None:
-            return lambda_W * gpnh_regularization(Ws).to(sdt)
-        return lambda_W * gpnh_regularization_masked(Ws, mask).to(sdt)
-
-    def dict_update(Zs):
-        Ws = update_gpnh_dictionary(X, Zs, Zs.transpose(1, 2) @ Zs, GW,
-                                    lambda_W=lambda_W)
-        if component_mask is not None:
-            Ws = Ws * keep
-        return Ws, Ws.transpose(1, 2) @ Ws, -(X @ Ws)
-
-    def cost_of(Zs, Ws, WtWs, XWs):
-        WtXtZ_tr = torch.sum(XWs.to(sdt) * Zs.to(sdt), dim=(1, 2))
-        return _gpnh_cost_from_parts(trace_XtX, WtXtZ_tr,
-                                     Zs.transpose(1, 2) @ Zs, WtWs,
-                                     penalty(Ws), n_samples)
-
-    def iterate(Zs, Ws):
-        Ws, WtWs, Bs = dict_update(Zs)
-        Zs = quad_simplex_spg_batch_grouped(
-            WtWs, Bs, Zs, backend=weights_backend, mask=component_mask,
-            **weights_kwargs)
-        return Zs, Ws, cost_of(Zs, Ws, WtWs, -Bs)
-
-    def cost0(Zs, Ws):
-        return cost_of(Zs, Ws, Ws.transpose(1, 2) @ Ws, X @ Ws)
-
-    return iterate, cost0
+    return _gpnh_iterate(
+        X, lambda_W=lambda_W, weights_backend=weights_backend,
+        weights_kwargs=weights_kwargs, n_components=n_components,
+        sh=_Shard(device=X.device), component_mask=component_mask)
 
 
 def _gpnh_parts(X, lambda_W, statics, grouped_backend, component_mask=None):
@@ -874,7 +909,7 @@ def _make_gpnh_grouped_round_run(X, *, lambda_W, tolerance, statics,
 @apply_matmul_precision
 def _compacted_gpnh_best(X, states, lambda_W, tolerance, *, statics,
                          grouped_backend, restart_chunk, round_iterations,
-                         component_mask=None):
+                         component_mask=None, groups=None):
     """Multi-restart GPNH with convergence compaction, from given
     initial states ``(Zs, Ws)`` (not modified; see
     :func:`_compacted_best`).  Returns ``(best, costs, n_iters)`` with
@@ -884,14 +919,15 @@ def _compacted_gpnh_best(X, states, lambda_W, tolerance, *, statics,
         grouped_backend=grouped_backend, component_mask=component_mask)
     return _best_of_compacted(
         states, run, max_iterations=int(statics['max_iterations']),
-        restart_chunk=restart_chunk, round_iterations=round_iterations)
+        restart_chunk=restart_chunk, round_iterations=round_iterations,
+        groups=groups)
 
 
 @apply_matmul_precision
 def _screened_gpnh_best(X, states, lambda_W, tolerance, *, statics,
                         grouped_backend, restart_chunk, screen_iterations,
                         screen_keep, screen_margin=None,
-                        component_mask=None):
+                        component_mask=None, groups=None):
     """Screened multi-restart GPNH (:func:`_screened_best`) from given
     initial states ``(Zs, Ws)``, both phases on the round runner of
     :func:`_compacted_gpnh_best`.  Returns ``(best, costs, n_iters,
@@ -902,7 +938,8 @@ def _screened_gpnh_best(X, states, lambda_W, tolerance, *, statics,
     return _screened_best(
         states, run, max_iterations=int(statics['max_iterations']),
         screen_iterations=screen_iterations, restart_chunk=restart_chunk,
-        screen_keep=screen_keep, screen_margin=screen_margin)
+        screen_keep=screen_keep, screen_margin=screen_margin,
+        groups=groups)
 
 
 @apply_matmul_precision
@@ -914,7 +951,8 @@ def gpnh_fit_restarts(data, n_components, generator, n_init, lambda_W=0.0,
                       pad_components_to=None, screen_iterations=None,
                       screen_keep=0.25, screen_margin=None, grouped=None,
                       compact_iterations=None, device=None):
-    """Best-of-``n_init`` GPNH convex coding on one device.
+    """Best-of-``n_init`` GPNH convex coding, on one device or over the
+    restart axis of a mesh.
 
     ``data``, ``generator``, ``device``, the schedulers
     (``compact_iterations``, ``restart_chunk``, ``screen_iterations``,
@@ -932,16 +970,15 @@ def gpnh_fit_restarts(data, n_components, generator, n_init, lambda_W=0.0,
     and ``costs``, ``n_iters`` and ``best_index`` over all restarts
     (numpy), and ``screen`` when screened.
     """
-    del restart_axis  # a mesh axis: mesh= raises
-    _check_fit_args(stopping_criterion, n_init, mesh, grouped,
-                    compact_iterations, screen_iterations)
+    _check_fit_args(stopping_criterion, n_init, mesh, restart_axis,
+                    grouped, compact_iterations, screen_iterations)
     if init not in ('random', 'furthest_sum'):
         raise ValueError(
             "gpnh_fit_restarts supports init='random' or "
             "'furthest_sum' (the reference drivers' choices)")
 
-    X = as_input(data, device)
-    generator = _generator_on(generator, X.device)
+    X = as_input(data, _fit_device(mesh, device))
+    generator = _generator_on(generator, X.device, mesh=mesh)
     k_out = int(n_components)
     k_fit, component_mask = _padded_components(k_out, pad_components_to)
     weights_cfg = make_config(QPSolverConfig, weights_solver_kwargs)
@@ -960,7 +997,8 @@ def gpnh_fit_restarts(data, n_components, generator, n_init, lambda_W=0.0,
                                          device=X.device)
     common = dict(statics=statics, grouped_backend=grouped_backend,
                   restart_chunk=restart_chunk,
-                  component_mask=component_mask)
+                  component_mask=component_mask,
+                  groups=_restart_groups(mesh, restart_axis))
     args = (X, states, float(lambda_W), float(tolerance))
     best, costs, n_iters, screen = _schedule(
         lambda **kw: _compacted_gpnh_best(*args, **common, **kw),

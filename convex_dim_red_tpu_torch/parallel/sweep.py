@@ -26,10 +26,11 @@ import warnings
 import numpy as np
 import torch
 
-from ..models._common import _reject_mesh
+from ..models._common import _check_mesh, _fit_device
 from ..models.kmeans import KMeans, gap_statistic
 from ..utils.precision import matmul_precision_scope
 from ..utils.validation import _host, as_input
+from .mesh import _agree_object, _is_first_rank
 from .restarts import aa_fit_restarts, gpnh_fit_restarts
 
 __all__ = ["aa_model_selection_sweep", "gpnh_model_selection_sweep",
@@ -76,13 +77,19 @@ def _sweep_ckpt_load(checkpoint_dir, k, fingerprint):
     return entry
 
 
-def _sweep_ckpt_save(checkpoint_dir, k, entry, fingerprint):
+def _sweep_ckpt_save(checkpoint_dir, k, entry, fingerprint, mesh=None):
+    """Save a completed point; on a mesh only its first rank writes,
+    through a temporary file renamed into place."""
     if checkpoint_dir is None:
+        return
+    if mesh is not None and not _is_first_rank(mesh):
         return
     os.makedirs(checkpoint_dir, exist_ok=True)
     path = os.path.join(checkpoint_dir, "k_%03d.npz" % k)
-    np.savez(path, _fingerprint=fingerprint,
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, _fingerprint=fingerprint,
              **{name: np.asarray(val) for name, val in entry.items()})
+    os.replace(tmp, path)
 
 
 def _sub_seeds(seed):
@@ -103,26 +110,37 @@ def _pad_to(k, component_bucket):
 
 
 def _sweep(point, data, ks, seed, params, checkpoint_dir, device,
-           draws=1):
+           draws=1, mesh=None):
     """The sweep loop: for each ``k`` ``draws`` sub-seeds, then the
     checkpoint or ``point(X, k, *sub_seeds)``, the entry of that ``k``
     to which the loop adds ``elapsed``, the point's wall time.
-    ``params`` make the checkpoints' fingerprint."""
+    ``params`` make the checkpoints' fingerprint; with ``mesh`` the data
+    goes to the mesh's device, and the mesh's first rank alone reads and
+    writes the checkpoints."""
+    _check_mesh(mesh)
     fp = _sweep_fingerprint(data, seed, params)
-    X = as_input(data, device)
+    X = as_input(data, _fit_device(mesh, device))
     seeds = _sub_seeds(seed)
     results = {}
     for k in ks:
         k = int(k)
         subs = [next(seeds) for _ in range(draws)]
-        done = _sweep_ckpt_load(checkpoint_dir, k, fp)
+        if mesh is None:
+            done = _sweep_ckpt_load(checkpoint_dir, k, fp)
+        else:
+            # The first rank decides and hands its checkpoint to all, so
+            # every rank skips or fits the same k, whatever files it
+            # sees.
+            done = _agree_object(
+                _sweep_ckpt_load(checkpoint_dir, k, fp)
+                if _is_first_rank(mesh) else None, mesh)
         if done is not None:
             results[k] = done
             continue
         start = time.perf_counter()
         results[k] = point(X, k, *subs)
         results[k]['elapsed'] = time.perf_counter() - start
-        _sweep_ckpt_save(checkpoint_dir, k, results[k], fp)
+        _sweep_ckpt_save(checkpoint_dir, k, results[k], fp, mesh)
     return results
 
 
@@ -162,7 +180,11 @@ def aa_model_selection_sweep(data, ks, seed, n_init=50, delta=0.0,
     ``solver_kwargs`` go to every fit (for example
     ``screen_iterations`` or ``dictionary_solver_kwargs``);
     ``validation_data`` is accepted for the JAX package's signature and
-    unused, as there; ``mesh`` raises.
+    unused, as there.  ``mesh`` (a DeviceMesh with a ``restarts`` axis)
+    splits each fit's restarts over it (see
+    :func:`~.restarts.aa_fit_restarts`); every rank calls the sweep and
+    gets every result, and only the mesh's first rank reads and writes
+    checkpoints (the others get what it loaded).
 
     Returns ``{k: {'cost', 'rmse', 'n_iter', 'elapsed', 'costs'}}``:
     ``rmse`` of the winner's reconstruction ``Z archetypes``,
@@ -185,7 +207,8 @@ def aa_model_selection_sweep(data, ks, seed, n_init=50, delta=0.0,
 
     return _sweep(_fit_point(fit, lambda res: res['weights']
                              @ res['archetypes'], component_bucket),
-                  data, ks, seed, params, checkpoint_dir, device)
+                  data, ks, seed, params, checkpoint_dir, device,
+                  mesh=mesh)
 
 
 def gpnh_model_selection_sweep(data, ks, seed, n_init=50, lambda_W=0.0,
@@ -201,7 +224,8 @@ def gpnh_model_selection_sweep(data, ks, seed, n_init=50, lambda_W=0.0,
     ``seed``, ``device``, ``component_bucket`` (the masked penalty takes
     the active count, so a padded fit optimizes the ``k``-component
     objective) and ``checkpoint_dir``.  Returns ``{k: {'cost', 'rmse',
-    'n_iter', 'elapsed', 'costs'}}``, ``rmse`` of ``Z W'``.
+    'n_iter', 'elapsed', 'costs'}}``, ``rmse`` of ``Z W'``.  ``mesh``
+    as in :func:`aa_model_selection_sweep`.
     """
     params = dict(n_init=n_init, lambda_W=lambda_W, init=init,
                   tolerance=tolerance,
@@ -219,7 +243,8 @@ def gpnh_model_selection_sweep(data, ks, seed, n_init=50, lambda_W=0.0,
 
     return _sweep(_fit_point(fit, lambda res: res['weights']
                              @ res['dictionary'].T, component_bucket),
-                  data, ks, seed, params, checkpoint_dir, device)
+                  data, ks, seed, params, checkpoint_dir, device,
+                  mesh=mesh)
 
 
 def kmeans_model_selection_sweep(data, ks, seed, n_init=10, n_trials=100,
@@ -235,22 +260,38 @@ def kmeans_model_selection_sweep(data, ks, seed, n_init=10, n_trials=100,
     ``max_iter`` iterations) and its :func:`~..models.kmeans.
     gap_statistic`'s (``n_trials`` draws from ``reference``).
     ``data``, ``device`` and ``checkpoint_dir`` are as in
-    :func:`aa_model_selection_sweep`; ``mesh`` raises.
+    :func:`aa_model_selection_sweep`.  ``mesh`` runs the fit as
+    ``KMeans(mesh=mesh)`` (rows over the sample axis, restarts over the
+    restart axis) and the gap as
+    :func:`~.sharded_models.sharded_gap_statistic` (trials over the
+    restart axis), each giving the single-device numbers up to
+    reduction order, so ``n_trials`` is not rounded up as in the JAX
+    package.
 
     Returns ``{k: {'cost', 'gap', 'gap_sk', 'n_iter', 'elapsed'}}``,
     ``cost`` the fit's inertia.
     """
-    _reject_mesh(mesh)
+    _check_mesh(mesh)
+    if mesh is not None:
+        from .mesh import ensure_mesh_axes
+        mesh = ensure_mesh_axes(mesh)
     params = dict(n_init=n_init, n_trials=n_trials, reference=reference,
                   max_iter=max_iter)
 
     def point(X, k, fit_seed, gap_seed):
         model = KMeans(n_clusters=k, n_init=n_init, max_iter=max_iter,
-                       random_state=fit_seed).fit(X)
-        gap, sk = gap_statistic(X, model.inertia_, k, n_trials=n_trials,
-                                reference=reference, random_state=gap_seed)
+                       random_state=fit_seed, mesh=mesh).fit(X)
+        if mesh is None:
+            gap, sk = gap_statistic(X, model.inertia_, k,
+                                    n_trials=n_trials, reference=reference,
+                                    random_state=gap_seed)
+        else:
+            from .sharded_models import sharded_gap_statistic
+            gap, sk = sharded_gap_statistic(
+                mesh, X, model.inertia_, k, n_trials=n_trials,
+                reference=reference, random_state=gap_seed)
         return {'cost': model.inertia_, 'gap': gap, 'gap_sk': sk,
                 'n_iter': model.n_iter_}
 
     return _sweep(point, data, ks, seed, params, checkpoint_dir, device,
-                  draws=2)
+                  draws=2, mesh=mesh)

@@ -1,8 +1,13 @@
-"""Projected spectral gradient (SPG) QP solvers, batched.
+"""Projected spectral gradient (SPG) solvers.
 
-Port of the QP solvers of convex_dim_red_tpu/solvers/spg.py (the
-generic ``spg`` is a later slice, ROADMAP.md queue 1 item 14):
+Port of convex_dim_red_tpu/solvers/spg.py:
 
+- :func:`spg`, the generic solver over user callables ``f``/``df``/
+  ``project`` (Birgin-Martinez-Raydan SPG with a Grippo nonmonotone line
+  search), with the JAX function's zero-initialised memory, safeguards,
+  function-evaluation bookkeeping, warnings and verbose table.  The JAX
+  function's three ``lax.while_loop`` calls become Python loops over
+  tensors that read one comparison on the host per step.
 - :func:`quad_spg`, the operator-form QP solver with the closed-form
   exact line search.  The JAX package ``vmap``s it over restarts or
   rows; here the batch axis is the leading axis of every operand, every
@@ -23,6 +28,10 @@ the residual at alpha = 1 with a second projection; the kernels test
 ``||D|| < eps * min(alpha, 1)`` with none.
 """
 
+import time
+import warnings
+
+import numpy as np
 import torch
 
 from ..ops.simplex_projection import (simplex_project_masked,
@@ -32,8 +41,11 @@ from ..ops.simplex_qp import (MAX_K, UNPACKED_MAX_K, quad_simplex_qp,
                               quad_simplex_qp_packed,
                               quad_simplex_qp_packed_grouped)
 from ..utils.precision import apply_matmul_precision
+from ..utils.validation import as_input
 
 __all__ = [
+    "spg",
+    "line_search_step_length",
     "quad_spg",
     "quad_simplex_spg",
     "quad_simplex_spg_batch",
@@ -56,6 +68,194 @@ def cauchy_step_size(beta, sksk, alpha_min=1e-3, alpha_max=1e3):
                        torch.clamp(sksk / safe_beta, alpha_min, alpha_max))
 
 
+def line_search_step_length(lam, delta, f_old, f_new,
+                            sigma_one=0.1, sigma_two=0.9):
+    """Safeguarded quadratic-interpolation step length: the minimizer of
+    the quadratic through ``f_old``, the slope ``delta`` and ``f_new`` at
+    ``lam``, kept when it lies in ``[sigma_one, sigma_two lam]``, else
+    ``lam / 2`` (a non-finite interpolation, at zero curvature, falls to
+    the bisection too)."""
+    denom = f_new - f_old - lam * delta
+    tmp = -0.5 * lam * lam * delta / denom
+    ok = (sigma_one <= tmp) & (tmp <= sigma_two * lam)
+    return torch.where(ok, tmp, 0.5 * lam)
+
+
+def _norms(res):
+    return torch.sqrt(torch.sum(res * res)), torch.max(torch.abs(res))
+
+
+def _emit_spg_warnings(underflow, feval_exceeded, iter_exceeded):
+    """The soft failures of a solve as ``UserWarning``, with the JAX
+    package's (and the reference's) texts."""
+    if underflow:
+        warnings.warn('step size below tolerance in SPG line search',
+                      UserWarning)
+    if feval_exceeded:
+        warnings.warn('maximum number of function evaluations exceeded '
+                      'in SPG', UserWarning)
+    if iter_exceeded:
+        warnings.warn('maximum number of iterations exceeded in SPG',
+                      UserWarning)
+
+
+class _VerboseTable:
+    """The reference's fixed-width SPG iteration table, printed live:
+    one row per iteration with the wall time since the last row."""
+
+    _HEADER = '{:<12s} | {:<12s} | {:<13s} | {:<13s} | {:<12s}'.format(
+        'n_iter', 'n_feval', 'f', 'conv_crit', 'time')
+    _ROW = '{:12d} | {:12d} | {: 12.6e} | {: 12.6e} | {: 12.6e}'
+
+    def __init__(self):
+        self._last = None
+
+    def header(self, n_feval, f0):
+        print(self._HEADER)
+        print('-' * 79)
+        print(self._ROW.format(0, int(n_feval), float(f0), -1.0, 0.0))
+        self._last = time.perf_counter()
+
+    def row(self, n_iter, n_feval, f, conv_crit):
+        now = time.perf_counter()
+        dt = now - self._last
+        self._last = now
+        print(self._ROW.format(int(n_iter), int(n_feval), float(f),
+                               float(conv_crit), dt))
+
+    def footer(self, converged, n_iter):
+        if converged:
+            print('-' * 79)
+            print('*** Converged at iteration {:d} ***'.format(int(n_iter)))
+
+
+def _spg_input(x0, device):
+    """``x0`` as a floating tensor: a tensor or numpy array keeps its
+    floating dtype; a Python number or list, or an integer array, takes
+    torch's default dtype (the JAX package's float under its x64
+    flag)."""
+    if not isinstance(x0, torch.Tensor) and isinstance(
+            x0, (np.ndarray, np.generic)):
+        x0 = np.asarray(x0)
+    x = as_input(x0, device)
+    if not x.is_floating_point():
+        x = x.to(torch.get_default_dtype())
+    return x
+
+
+@apply_matmul_precision
+def spg(f, df, x0, project=None, gamma=1e-4, memory=1,
+        sigma_one=0.1, sigma_two=0.9, lambda_min=1e-10,
+        alpha0=None, alpha_min=1e-5, alpha_max=1e3,
+        epsilon_one=1e-10, epsilon_two=1e-6,
+        use_infinity_norm=True, verbose=0,
+        max_iterations=10000, max_feval=1000000, device=None):
+    """Minimize ``f`` by projected gradient descent with a nonmonotone
+    line search.
+
+    The JAX function's parameters and results: ``f`` and ``df`` map a
+    tensor shaped like ``x0`` to a 0-d tensor and a tensor, ``project``
+    (optional) maps onto the feasible set.  ``x0`` (a scalar or a tensor
+    of any shape) goes to ``device`` as
+    :func:`utils.validation.as_input` says: a tensor stays on its
+    device, anything else goes to the card unless ``device='cpu'``.
+    Returns ``(x, f_min, n_iter, n_feval)``: tensors ``x`` and
+    ``f_min``, and ``n_iter``, the descent iterations executed, and
+    ``n_feval`` as integers.  ``verbose`` prints the reference's table
+    as the solve goes; the soft failures (line-search underflow, the
+    evaluation or the iteration cap reached before convergence) raise
+    ``UserWarning``.
+    """
+    x = _spg_input(x0, device)
+    dtype = x.dtype
+
+    def scalar(v):
+        return torch.as_tensor(v, dtype=dtype, device=x.device)
+
+    if project is not None:
+        x = project(x)
+
+    f_old = f(x)
+    n_feval = 1
+    gk = df(x)
+
+    if alpha0 is not None:
+        alpha = scalar(alpha0)
+    elif project is None:
+        alpha = 1.0 / torch.max(torch.abs(gk))
+    else:
+        alpha_inv = torch.max(torch.abs(project(x - gk) - x))
+        alpha = torch.where(torch.abs(alpha_inv) > 1e-12, 1.0 / alpha_inv,
+                            scalar(1.0))
+
+    # The reference initialises the nonmonotone memory with zeros.
+    f_mem = torch.zeros((memory,), dtype=dtype, device=x.device)
+
+    table = _VerboseTable() if verbose else None
+    if table is not None:
+        table.header(n_feval, f_old)
+
+    def direction(x, g, a):
+        if project is None:
+            return -a * g
+        return project(x - a * g) - x
+
+    def residual(x, g):
+        if project is None:
+            return -g
+        return project(x - g) - x
+
+    n_iter = 0
+    converged = underflow = done = False
+    while not done and n_iter < max_iterations:
+        dk = direction(x, gk, alpha)
+        f_mem = torch.roll(f_mem, 1)
+        f_mem[0] = f_old
+        f_max = torch.max(f_mem)
+        delta = torch.sum(dk * gk)
+
+        lam = scalar(1.0)
+        x_new = x + dk
+        f_new = f(x_new)
+        n_feval += 1
+        uf = False
+        while not uf and bool(f_new > f_max + gamma * lam * delta):
+            lam = line_search_step_length(lam, delta, f_old, f_new,
+                                          sigma_one, sigma_two)
+            x_new = x + lam * dk
+            f_new = f(x_new)
+            n_feval += 1
+            uf = bool(torch.abs(lam) < lambda_min)
+        underflow = underflow or uf
+
+        gk_new = df(x_new)
+        yk = gk_new - gk
+        sksk = lam * lam * torch.sum(dk * dk)
+        betak = lam * torch.sum(dk * yk)
+        alpha = cauchy_step_size(betak, sksk, alpha_min, alpha_max)
+
+        # The reference evaluates f(x_new) once more here: the same
+        # value, reused; the counter keeps its bookkeeping.
+        f_old = f_new
+        n_feval += 1
+        x, gk = x_new, gk_new
+        n_iter += 1
+
+        res2, resinf = _norms(residual(x, gk))
+        if table is not None:
+            table.row(n_iter, n_feval, f_old, res2)
+        converged = bool(res2 < epsilon_two)
+        if use_infinity_norm:
+            converged = converged or bool(resinf < epsilon_one)
+        done = converged or n_feval > max_feval
+
+    if table is not None:
+        table.footer(converged, n_iter)
+    _emit_spg_warnings(underflow, n_feval > max_feval and not converged,
+                       n_iter >= max_iterations and not converged)
+    return x, f_old, n_iter, n_feval
+
+
 def _batch_sum(v):
     return v.sum(dim=tuple(range(1, v.ndim)))
 
@@ -68,7 +268,7 @@ def _batch_amax(v):
 def quad_spg(matvec, B, x0, project, alpha0=-1.0,
              alpha_min=1e-5, alpha_max=1e3,
              epsilon_one=1e-10, epsilon_two=1e-6,
-             max_iterations=1000):
+             max_iterations=1000, agree=None):
     """Projected spectral gradient for ``min 0.5<x,Hx> - <B,x>`` over a
     convex set, for a batch of problems along the leading axis.
 
@@ -76,6 +276,9 @@ def quad_spg(matvec, B, x0, project, alpha0=-1.0,
     tensors to batched tensors.  Uses Barzilai-Borwein step sizes with
     the closed-form exact line minimizer along the projected direction;
     ``H x`` is carried incrementally, one ``matvec`` per iteration.
+    ``agree`` (a sharded solve, whose ``matvec`` runs a collective)
+    maps this process's host stop flag to the one every process of its
+    group takes, so all leave the loop together.
     Returns the projected solutions, ``(R, ...)``.
     """
     x = project(x0)
@@ -103,8 +306,12 @@ def quad_spg(matvec, B, x0, project, alpha0=-1.0,
     stall = torch.zeros((R,), dtype=torch.int32, device=x.device)
     done = torch.zeros((R,), dtype=torch.bool, device=x.device)
     for it in range(int(max_iterations)):
-        if it and it % _DONE_CHECK_EVERY == 0 and bool(done.all()):
-            break
+        if it and it % _DONE_CHECK_EVERY == 0:
+            stop = bool(done.all())
+            if agree is not None:
+                stop = agree(stop)
+            if stop:
+                break
         g = Hx - B
         d = project(x - alpha.view(bshape) * g) - x
         Hd = matvec(d)

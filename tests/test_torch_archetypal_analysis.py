@@ -33,6 +33,7 @@ from convex_dim_red_tpu_torch.models import archetypal_analysis as taa
 from convex_dim_red_tpu_torch.ops import simplex_qp
 from convex_dim_red_tpu_torch.utils.interop import (
     estimator_state_from_numpy, load_fitted_estimator)
+from tests.torch_mesh_worlds import bad_mesh
 
 # Small tensors: one intra-op thread per process keeps parallel test
 # workers from oversubscribing the cores.
@@ -353,14 +354,21 @@ def test_watchdog_raises_the_jax_message():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(mesh=object()), dict(n_components=0), dict(max_iterations=0),
-    dict(init='kmeans'), dict(stopping_criterion='delta_x'),
+    dict(mesh='not a mesh'), dict(mesh='wrong axes'), dict(n_components=0),
+    dict(max_iterations=0), dict(init='kmeans'),
+    dict(stopping_criterion='delta_x'),
     dict(weights_solver_kwargs={'max_iteration': 5})])
 def test_estimator_rejects_what_jax_rejects_or_is_not_ported(bad):
+    """A ``mesh`` that is not a DeviceMesh, or lacks the mesh axes,
+    raises a ``ValueError`` naming ``mesh``."""
     kw = dict(n_components=2, random_state=0)
     kw.update(bad)
-    with pytest.raises(ValueError):
-        taa.ArchetypalAnalysis(**kw).fit(torch.as_tensor(_data()))
+    with bad_mesh(kw.pop('mesh', 'not a mesh')) as mesh:
+        if 'mesh' in bad:
+            kw['mesh'] = mesh
+        with pytest.raises(ValueError,
+                           match='mesh' if 'mesh' in bad else None):
+            taa.ArchetypalAnalysis(**kw).fit(torch.as_tensor(_data()))
 
 
 def test_estimator_random_state_forms():

@@ -626,3 +626,29 @@ def test_aa_transform_on_card_runs_k2(cuda):
     assert Z.device.type == "cuda"
     # K2 and the CPU's row solver stop on different rules.
     assert cost == pytest.approx(cost_cpu, rel=1e-6)
+
+
+def test_sharded_fits_on_the_card_match_one_device(cuda):
+    """The dry run of the multi-device layer in a world of two processes
+    sharing the card on gloo (parallel/dryrun.py: train step, sharded
+    AA, kernel-AA and GPNH fits on (2, 1) and (1, 2) meshes, a
+    restart-sharded fit), K1 on every rank, each check held to the
+    single-device path."""
+    from convex_dim_red_tpu_torch.parallel.dryrun import dryrun_multichip
+    for rank in dryrun_multichip(2, 'gloo', 'cuda'):
+        assert rank['launches']['K1'] > 0
+        assert max(rank['differences'].values()) < 1e-6
+
+
+def test_profiling_helpers_on_the_card(cuda, tmp_path):
+    from convex_dim_red_tpu_torch.utils.profiling import (block_and_time,
+                                                          trace)
+    x = torch.ones((256, 256), device=cuda)
+    result, sec = block_and_time(lambda a: a @ a, x, repeats=3)
+    assert sec > 0 and float(result[0, 0]) == 256.0
+    with trace(str(tmp_path)) as prof:
+        (x @ x).sum().item()
+    assert any(p.name.endswith(".pt.trace.json")
+               for p in tmp_path.rglob("*"))
+    assert any(getattr(e, "device_time_total", 0) > 0
+               for e in prof.key_averages())

@@ -198,6 +198,30 @@ def test_driver_without_the_card_needs_platform_cpu(no_cuda, tmp_path,
     assert open_dataset(out)['centroids'].data.shape == (2, 2, 4)
 
 
+def test_a_cuda_mesh_needs_the_card(no_cuda):
+    """A mesh on ``'cuda'`` (the default) with no card raises, before any
+    process group is needed: no mesh falls back to the CPU."""
+    from convex_dim_red_tpu_torch.parallel.mesh import create_mesh, spawn
+    for call in (lambda: create_mesh((1, 1)),
+                 lambda: create_mesh(device_type='cuda'),
+                 lambda: spawn(print, 1, device_type='cuda')):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            call()
+
+
+def test_the_dry_run_goes_to_the_card(no_cuda):
+    """The dry run, called or run as a module with no arguments, and the
+    launcher it uses, run on the card unless asked for the CPU: with no
+    card they raise before any process starts."""
+    from convex_dim_red_tpu_torch.parallel import dryrun
+    from convex_dim_red_tpu_torch.parallel.mesh import spawn
+    for call in (lambda: spawn(print, 1), lambda: dryrun.dryrun_multichip(),
+                 lambda: dryrun.dryrun_multichip(1, 'gloo'),
+                 lambda: dryrun.main([]), lambda: dryrun.main(['2', 'gloo'])):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            call()
+
+
 @pytest.mark.parametrize("data,dtype", [
     (np.zeros((2, 3), np.float32), torch.float32),
     (np.zeros((2, 3)), torch.float64),

@@ -31,9 +31,12 @@ from convex_dim_red_tpu.ops.pallas_qp import (
     quad_simplex_qp_pallas_packed_grouped)
 from convex_dim_red_tpu.parallel import restarts as jrestarts
 from convex_dim_red_tpu.solvers.spg import _pallas_qp_kwargs
+from convex_dim_red_tpu_torch.models.gpnh_convex_coding import (
+    gpnh_regularization)
 from convex_dim_red_tpu_torch.ops import simplex_qp
 from convex_dim_red_tpu_torch.parallel import restarts as trestarts
 from convex_dim_red_tpu_torch.utils.interop import gpnh_states_from_numpy
+from tests.torch_mesh_worlds import bad_mesh
 
 # Small tensors: one intra-op thread per process keeps parallel test
 # workers from oversubscribing the cores.
@@ -197,7 +200,7 @@ def test_public_fit_contract():
     np.testing.assert_allclose(Z.sum(dim=1).numpy(), 1.0, atol=1e-12)
     resid = X - Z @ W.T
     cost = (0.5 * torch.sum(resid * resid).item() / N
-            + LAMBDA_W * float(trestarts.gpnh_regularization(W)))
+            + LAMBDA_W * float(gpnh_regularization(W)))
     assert res['cost'] == pytest.approx(cost, rel=1e-10)
     assert res['costs'].shape == (5,) and res['n_iters'].shape == (5,)
     assert res['best_index'] == int(np.argmin(res['costs']))
@@ -244,7 +247,8 @@ def test_random_init_has_the_jax_scale():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(mesh=object()), dict(screen_iterations=10, compact_iterations=20),
+    dict(mesh='not a mesh'), dict(mesh='wrong axes'),
+    dict(screen_iterations=10, compact_iterations=20),
     dict(pad_components_to='eight'), dict(grouped=False),
     dict(init='custom'), dict(stopping_criterion='delta_x'),
     dict(n_init=0), dict(weights_solver_kwargs={'max_iteration': 5})])
@@ -252,7 +256,14 @@ def test_rejects_what_is_not_ported(bad):
     # Screening and padding are ported: screen_iterations raises only
     # beside an integer compact_iterations (two schedulers), and
     # pad_components_to only when it is not a count.
+    # A mesh that is not a DeviceMesh, or lacks the restart axis, raises
+    # naming mesh.
     kw = dict(n_init=2)
     kw.update(bad)
-    with pytest.raises(ValueError):
-        trestarts.gpnh_fit_restarts(torch.as_tensor(_data()), K, 0, **kw)
+    with bad_mesh(kw.pop('mesh', 'not a mesh')) as mesh:
+        if 'mesh' in bad:
+            kw['mesh'] = mesh
+        with pytest.raises(ValueError,
+                           match='mesh' if 'mesh' in bad else None):
+            trestarts.gpnh_fit_restarts(torch.as_tensor(_data()), K, 0,
+                                        **kw)

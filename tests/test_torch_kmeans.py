@@ -19,6 +19,7 @@ from convex_dim_red_tpu.models import kmeans as jk
 from convex_dim_red_tpu_torch import KMeans, gap_statistic, kmeans_fit
 from convex_dim_red_tpu_torch.models import kmeans as tk
 from convex_dim_red_tpu_torch.utils.interop import load_fitted_kmeans
+from tests.torch_mesh_worlds import bad_mesh
 
 torch.set_num_threads(1)
 
@@ -176,10 +177,18 @@ def test_kmeans_random_init_recovers_blobs():
     assert np.allclose(centers, expected, atol=0.5)
 
 
-@pytest.mark.parametrize("kwargs", [dict(init='bogus'), dict(mesh=object())])
+@pytest.mark.parametrize("kwargs", [
+    dict(init='bogus'), dict(mesh='not a mesh'), dict(mesh='wrong axes')])
 def test_kmeans_rejects_unknown_init_and_mesh(kwargs):
-    with pytest.raises(ValueError):
-        KMeans(n_clusters=2, **kwargs)
+    """A ``mesh`` that is not a DeviceMesh, or lacks the mesh axes,
+    raises a ``ValueError`` naming ``mesh``."""
+    kwargs = dict(kwargs)
+    with bad_mesh(kwargs.pop('mesh', 'not a mesh')) as mesh:
+        if len(kwargs) == 0:
+            kwargs['mesh'] = mesh
+        with pytest.raises(ValueError,
+                           match='mesh' if 'mesh' in kwargs else 'init'):
+            KMeans(n_clusters=2, **kwargs)
 
 
 def test_kmeans_transform_returns_center_distances():

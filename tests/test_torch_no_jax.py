@@ -110,3 +110,15 @@ def test_port_runs_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip() == "OK", proc.stdout
+
+
+def test_spawned_world_imports_no_jax():
+    """A gloo world of two processes runs a sharded fit with ``jax`` made
+    unimportable in each: no process imports JAX or the JAX package
+    (the world's worker module imports neither)."""
+    import numpy as np
+
+    from tests import torch_mesh_worlds as W
+    for rank in W.world([('fit', 'jax_blocked', {})], timeout=120.0):
+        assert np.isfinite(rank['fit']['cost'])
+        assert rank['fit']['modules'] == []

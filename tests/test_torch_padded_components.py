@@ -37,6 +37,7 @@ from convex_dim_red_tpu.parallel import restarts as jrestarts
 from convex_dim_red_tpu.solvers.spg import _pallas_qp_kwargs
 from convex_dim_red_tpu_torch.models import _common as tcommon
 from convex_dim_red_tpu_torch.parallel import restarts as trestarts
+from convex_dim_red_tpu_torch.parallel import sharded_aa as tsharded
 from convex_dim_red_tpu_torch.utils.interop import (gpnh_states_from_numpy,
                                                     states_from_numpy)
 
@@ -303,7 +304,7 @@ def test_padded_gpnh_from_embedded_states_equals_unpadded(scheduler):
     _, mask = trestarts._padded_components(K, K_PAD)
 
     solves = []
-    real_solve = trestarts.update_gpnh_dictionary
+    real_solve = tsharded._solve_gpnh_dictionary
 
     def recording(*args, **kwargs):
         out = real_solve(*args, **kwargs)
@@ -325,7 +326,7 @@ def test_padded_gpnh_from_embedded_states_equals_unpadded(scheduler):
 
     best_r, costs_r, iters_r, _ = run((Z, W), None, K)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(trestarts, 'update_gpnh_dictionary', recording)
+        mp.setattr(tsharded, '_solve_gpnh_dictionary', recording)
         best_p, costs_p, iters_p, _ = run((Z_pad, W_pad), mask, K_PAD)
     np.testing.assert_allclose(costs_p, costs_r, rtol=1e-10)
     np.testing.assert_array_equal(iters_p, iters_r)

@@ -15,6 +15,7 @@ import torch
 from convex_dim_red_tpu.models import pca as jpca
 from convex_dim_red_tpu_torch.models import pca as tpca
 from convex_dim_red_tpu_torch.utils.interop import load_fitted_pca
+from tests.torch_mesh_worlds import bad_mesh
 
 torch.set_num_threads(1)
 
@@ -108,6 +109,10 @@ def test_transforms_of_a_loaded_fit_match_jax():
                                   want.explained_variance_)
 
 
-def test_mesh_is_not_ported():
-    with pytest.raises(ValueError, match="item 17"):
-        tpca.PCA(2, mesh=object())
+@pytest.mark.parametrize("kind", ['not a mesh', 'wrong axes'])
+def test_mesh_is_not_ported(kind):
+    """``mesh=`` is ported (tests/test_torch_estimator_mesh.py); one that
+    is not a DeviceMesh, or lacks the mesh axes, raises naming mesh."""
+    with bad_mesh(kind) as mesh:
+        with pytest.raises(ValueError, match="mesh"):
+            tpca.PCA(2, mesh=mesh)

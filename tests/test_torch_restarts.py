@@ -37,6 +37,7 @@ from convex_dim_red_tpu_torch.models import _common as tcommon
 from convex_dim_red_tpu_torch.ops import simplex_qp
 from convex_dim_red_tpu_torch.parallel import restarts as trestarts
 from convex_dim_red_tpu_torch.utils.interop import states_from_numpy
+from tests.torch_mesh_worlds import bad_mesh
 
 # Small tensors: one intra-op thread per process keeps parallel test
 # workers from oversubscribing the cores (tenfold slower when they do).
@@ -292,7 +293,8 @@ def test_scale_factors_fit_keeps_alpha_in_its_box():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(mesh=object()), dict(screen_iterations=10),
+    dict(mesh='not a mesh'), dict(mesh='wrong axes'),
+    dict(screen_iterations=10),
     dict(pad_components_to='eight'), dict(grouped=False),
     dict(init='custom'), dict(stopping_criterion='delta_x'),
     dict(n_init=0),
@@ -301,10 +303,16 @@ def test_rejects_what_is_not_ported(bad):
     # Screening and padding are ported: screen_iterations raises here
     # only beside an integer compact_iterations (two schedulers), and
     # pad_components_to only when it is not a count.
+    # A mesh that is not a DeviceMesh, or lacks the restart axis, raises
+    # naming mesh.
     kw = dict(init='random', compact_iterations=8, n_init=2)
     kw.update(bad)
-    with pytest.raises(ValueError):
-        trestarts.aa_fit_restarts(torch.as_tensor(_data()), K, 0, **kw)
+    with bad_mesh(kw.pop('mesh', 'not a mesh')) as mesh:
+        if 'mesh' in bad:
+            kw['mesh'] = mesh
+        with pytest.raises(ValueError,
+                           match='mesh' if 'mesh' in bad else None):
+            trestarts.aa_fit_restarts(torch.as_tensor(_data()), K, 0, **kw)
 
 
 def test_default_init_is_furthest_sum():

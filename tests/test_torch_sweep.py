@@ -24,6 +24,7 @@ from convex_dim_red_tpu_torch.parallel import sweep as tsweep
 from convex_dim_red_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                        resume_kernel_aa,
                                                        save_checkpoint)
+from tests.torch_mesh_worlds import bad_mesh
 
 torch.set_num_threads(1)
 
@@ -180,10 +181,14 @@ def test_kmeans_sweep_checkpoint_resume(tmp_path):
     assert changed[2]['elapsed'] != first[2]['elapsed']  # recomputed
 
 
-def test_kmeans_sweep_rejects_mesh():
-    with pytest.raises(ValueError, match="mesh"):
-        kmeans_model_selection_sweep(_blobs(3), [2], 0, mesh=object(),
-                                     **KMEANS_KW)
+@pytest.mark.parametrize("kind", ['not a mesh', 'wrong axes'])
+def test_kmeans_sweep_rejects_mesh(kind):
+    """A sweep's ``mesh`` that is not a DeviceMesh, or lacks the mesh
+    axes, raises naming mesh (a mesh sweep: tests/test_torch_mesh.py)."""
+    with bad_mesh(kind) as mesh:
+        with pytest.raises(ValueError, match="mesh"):
+            kmeans_model_selection_sweep(_blobs(3), [2], 0, mesh=mesh,
+                                         **KMEANS_KW)
 
 
 def test_checkpoint_roundtrip_and_resume(tmp_path):
