@@ -6,6 +6,11 @@ Hopper GPU (sm_90a), PyTorch built for CUDA and ``nvcc``::
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --scale-check-ab`` runs, instead of the phases,
+an A/B of the scale-factor SPG's host reads on phase 25's delta = 0.1
+paths and a profile of one iteration of its AA analysis
+(``scale_check_ab``).
+
 Phases, each printing its own lines; any failed check or exception ends
 the run with a non-zero exit and no result line:
 
@@ -39,7 +44,8 @@ the run with a non-zero exit and no result line:
    latency floor of a launch.
 6. Small fit: the port's ``aa_fit_restarts`` in float64 on a numpy
    array with no ``device`` (so on the card) and with ``device='cpu'``
-   (K1 and its plain version) from the same initial states, and an
+   (K1 and its plain version) from the same initial states (costs within
+   1e-6 relative, equal iteration counts), and an
    ``ArchetypalAnalysis`` fit of a numpy array, which lands on the card.
 7. Main path: the HadISST-scale best-of-100 fit that ``bench.py`` times
    (n=1788 x d=16384 synthetic data, k=6, weights QP capped at 25
@@ -116,9 +122,10 @@ the run with a non-zero exit and no result line:
     10, 20 trials: the wall of each k, inertia falling with k, finite
     gaps.
 21. The HadISST case-study analyses at full size, in memory (no netCDF:
-    the GPU machine has no h5py): a numpy copy of
-    bin/make_synthetic_hadisst.py at its defaults (149 years from 1870,
-    180 x 360, land 0.3, seed 0), the anomalies of the anomalies CLI
+    the GPU machine has no h5py): the port's copy of
+    bin/make_synthetic_hadisst.py (``pipelines/synthetic.py``) at its
+    defaults (149 years from 1870, 180 x 360, land 0.3, seed 0), the
+    anomalies of the anomalies CLI
     (base period 1981-2010, trend order 1), the HADISST spec's filters,
     scos weights, flatten, missing mask and a 0.1 chronological split
     (1610 training months, 178 held out), in float64 as a driver reads
@@ -163,10 +170,37 @@ the run with a non-zero exit and no result line:
 24. K1 and K2 against their plain versions on rank 0's local operands
     of phase 22's sharded estimator (its first K1 launch, its transform's
     K2 launch), as phase 21 holds them.
+25. The JRA-55 case study at full size, in memory: the port's copy of
+    bin/make_synthetic_jra55.py at the reanalysis' own span and grid
+    (61 years from 1958, 145 x 288, seed 0: 732 x 145 x 288 float32),
+    the JRA55_HGT spec's filters (20-90 N: 57 x 288 = 16,416 points),
+    scos weights and a 0.1 split (659 training months), in float64 as a
+    driver reads them; then, called as the drivers call them (host
+    arrays, ``device='cuda'``, fitted in float32): ``pca_analysis``
+    with 167 components (tolerance 1e-8), and on the 732 x 167 PCs (the
+    PC drivers hold none out) ``aa_analysis`` at jra55_pca_aa's
+    settings with k = 4 and delta = 0.1 (random init, best of 100,
+    rel_delta_f 1e-6, at most 10,000 iterations, both inner solvers
+    capped at one step), ``gpnh_analysis`` at jra55_pca_gpnh's, and
+    ``kmeans_analysis`` with the PCA-reference gap (best of 100, 100
+    trials) on the PCs and on the weighted grid: every attr finite (the
+    held-out ones NaN with no held-out months), each training cost
+    within 1e-4 of its float64 audit (AA's from Z alpha C X), every
+    alpha inside [0.9, 1.1] to float32 rounding, the weights rows on the
+    simplex; K1 held to its plain version on the AA and the GPNH
+    analyses' first launch and the first of their second round as phase
+    21 holds them, and timed at the AA analysis' one-iteration launch
+    (100, 732, 4).  Then phase 6's float64 fit with delta = 0.1 on the
+    card against the CPU (costs and alpha within 1e-6, equal iteration
+    counts), and ``ArchetypalAnalysis(4, delta=0.1)`` with 'pallas'
+    weights (K2 every iteration, one iteration a launch) on the PCs at
+    the driver's settings, then ``transform`` (one K2 launch; its cost
+    at most the fit's x 1.0001); K2 held to its plain version on the
+    operands of the fit's first launch and of the transform's.
 
 Each path runs with every launch count set to 0 just before it and read
-just after (in a world, in each process, and summed); phases 14-18, 21
-and 22 also check the K1 count against the one their restart schedule
+just after (in a world, in each process, and summed); phases 14-18, 21,
+22 and 25 also check the K1 count against the one their restart schedule
 implies (the scheduler's calls are recorded).
 The last lines of standard output are the card's name and power limit,
 a JSON object with every kernel's launches (in all and by path), error,
@@ -178,6 +212,7 @@ import os
 import re
 import statistics
 import subprocess
+import sys
 import threading
 import time
 
@@ -729,23 +764,27 @@ def fit_kwargs():
                 compact_iterations=COMPACT_ITERS)
 
 
-def phase_small_fit():
+def fit_on_card_and_cpu(delta):
     """The same float64 fit on the card and on the CPU, from the same
     initial states (a CPU generator draws them on both).  The data is a
     numpy array: with no ``device`` the fit runs on the card, with
     ``device='cpu'`` on the CPU.  This planted problem is well
     conditioned, so rounding differences between the two stay far below
     the 1e-6 compared here.  ``backend='pallas'`` on both: 'auto' runs
-    the row solver on the CPU, which stops on another rule."""
+    the row solver on the CPU, which stops on another rule.  Holds the
+    per-restart costs within 1e-6 relative and the iteration counts
+    equal; returns ``({device: result}, {device: wall}, the card's
+    launches)``."""
     import torch
-    from convex_dim_red_tpu_torch import ArchetypalAnalysis, aa_fit_restarts
+    from convex_dim_red_tpu_torch import aa_fit_restarts
     from convex_dim_red_tpu_torch.parallel.dryrun import planted_data
     X = planted_data(0, 300, 40, 6, 0.01)
-    kw = dict(fit_kwargs(), tolerance=1e-6, max_iterations=200,
+    kw = dict(fit_kwargs(), delta=delta, tolerance=1e-6, max_iterations=200,
               restart_chunk=4)
     kw['weights_solver_kwargs'] = dict(kw['weights_solver_kwargs'],
                                        backend='pallas')
     res, walls = {}, {}
+    reset_launches()
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
         res[dev] = aa_fit_restarts(X, 6, torch.Generator().manual_seed(0),
@@ -753,17 +792,44 @@ def phase_small_fit():
                                                dict(device=dev)))
         torch.cuda.synchronize()
         walls[dev] = time.perf_counter() - t0
+    launches = read_launches()
     for dev, r in res.items():
         check(r["weights"].device.type == dev,
               "aa_fit_restarts(numpy%s) ran on %s"
               % ("" if dev == "cuda" else ", device='cpu'",
                  r["weights"].device))
+    card, cpu = res["cuda"], res["cpu"]
+    rel = float(np.max(np.abs(card["costs"] / cpu["costs"] - 1.0)))
+    print("  float64 300x40, k=6, delta %g, 8 restarts: costs on the card "
+          "vs the CPU max rel diff %.3e; n_iters %s vs %s, winners %d and "
+          "%d; walls %.2f s on the card, %.2f s on the CPU, launches %s"
+          % (delta, rel, card["n_iters"].tolist(), cpu["n_iters"].tolist(),
+             card["best_index"], cpu["best_index"], walls["cuda"],
+             walls["cpu"], launches))
+    check(rel <= 1e-6, "delta %g fit: card and CPU costs differ by %.3e"
+          % (delta, rel))
+    check(np.array_equal(card["n_iters"], cpu["n_iters"]),
+          "delta %g fit: n_iters %s on the card, %s on the CPU"
+          % (delta, card["n_iters"].tolist(), cpu["n_iters"].tolist()))
+    check(launches["K1"] > 0, "delta %g fit: no K1 launch on the card"
+          % delta)
+    return res, walls, launches
+
+
+def phase_small_fit():
+    """``fit_on_card_and_cpu`` with delta = 0, and the estimator on a
+    numpy array with no ``device``, which must run on the card."""
+    import torch
+    from convex_dim_red_tpu_torch import ArchetypalAnalysis
+    from convex_dim_red_tpu_torch.parallel.dryrun import planted_data
+    _, walls, _ = fit_on_card_and_cpu(0.0)
     # Two iterations are enough to show where the fit runs: the
     # estimator's default dictionary step takes up to 10,000 SPG
     # iterations an outer iteration.
     t0 = time.perf_counter()
     model = ArchetypalAnalysis(6, init='furthest_sum', random_state=0,
-                               max_iterations=2).fit(X)
+                               max_iterations=2).fit(
+                                   planted_data(0, 300, 40, 6, 0.01))
     torch.cuda.synchronize()
     walls["estimator"] = time.perf_counter() - t0
     check(model.weights.device.type == "cuda"
@@ -773,14 +839,6 @@ def phase_small_fit():
           "ArchetypalAnalysis.fit on the card (walls: restarts %.2f s on "
           "the card, %.2f s on the CPU; estimator %.2f s)"
           % (walls["cuda"], walls["cpu"], walls["estimator"]))
-    rel = float(np.max(np.abs(res["cuda"]["costs"] / res["cpu"]["costs"]
-                              - 1.0)))
-    print("  float64 300x40, k=6, 8 restarts: costs on the card vs the "
-          "CPU max rel diff %.3e; n_iters %s vs %s"
-          % (rel, res["cuda"]["n_iters"].tolist(),
-             res["cpu"]["n_iters"].tolist()))
-    check(rel <= 1e-6, "small fit: card and CPU costs differ by %.3e"
-          % rel)
 
 
 def audit_cost_f64(result, X32):
@@ -1860,6 +1918,12 @@ HADISST_SYNTHETIC = dict(start_year=1870, n_years=149, n_lat=180,
                          n_lon=360, land_frac=0.3, seed=0)
 BASE_PERIOD = (1981, 2010)
 CASE_STUDY_K, CASE_STUDY_PCS = 4, 20
+#: The jra55_pca_gpnh driver's settings and its wrapper's, which phase 21
+#: runs on the HadISST PCs and phase 25 on the JRA-55 PCs.
+CASE_STUDY_GPNH = dict(lambda_W=1e-3, init='random', n_init=100,
+                       tolerance=1e-6, max_iterations=10000, random_seed=0,
+                       weights_solver_kwargs={'max_iterations': 1},
+                       stopping_criterion='rel_delta_f')
 #: Phase 21's float32 hold of K1/K2 on the analyses' operands: the share
 #: of rows that may be apart from the plain version by more than 1e-5 in
 #: objective (rounding decides a warm row's first step, phase 17), and
@@ -1993,36 +2057,6 @@ def phase_kmeans_sweep(X_host, card):
     return {"k-means sweep k=2..6": launches}
 
 
-def synthetic_hadisst(start_year, n_years, n_lat, n_lon, land_frac, seed):
-    """bin/make_synthetic_hadisst.py's field, in numpy (that script
-    imports the JAX package): ``(sst float32 (t, lat, lon), time in days
-    since start_year-1-1, lats, lons)``."""
-    from scipy.ndimage import gaussian_filter
-    rng = np.random.RandomState(seed)
-    n_t = n_years * 12
-    lats = np.linspace(89.5, -89.5, n_lat)
-    lons = np.linspace(-179.5, 179.5, n_lon)
-    t = np.arange(n_t)
-    month = t % 12
-    seasonal = (np.cos(2 * np.pi * (month[:, None] - 1) / 12)[..., None]
-                * np.sign(lats)[None, :, None]
-                * (np.abs(lats) / 90.0)[None, :, None]
-                * np.ones(n_lon)[None, None, :]) * 5.0
-    trend = 0.8 * (t / n_t)[:, None, None]
-    base = 20.0 * np.cos(np.deg2rad(lats))[None, :, None]
-    k = 5
-    modes = rng.standard_normal((k, n_lat, n_lon))
-    modes = np.stack([gaussian_filter(m, sigma=8) for m in modes])
-    pcs = rng.standard_normal((n_t, k)) * np.array([3, 2, 1.5, 1, 0.8])
-    anom = np.tensordot(pcs, modes, axes=(1, 0))
-    noise = 0.2 * rng.standard_normal((n_t, n_lat, n_lon))
-    sst = base + seasonal + trend + anom + noise
-    land = gaussian_filter(rng.standard_normal((n_lat, n_lon)), sigma=6)
-    sst[:, land > np.quantile(land, 1 - land_frac)] = np.nan
-    time_days = np.round(np.arange(n_t) * 30.4375).astype('f8')
-    return sst.astype('f4'), time_days, lats, lons
-
-
 def hadisst_case_study_data():
     """The synthetic HadISST field through the port's pipelines, as the
     anomalies CLI and the hadisst drivers take it: anomalies (base
@@ -2034,14 +2068,11 @@ def hadisst_case_study_data():
     from convex_dim_red_tpu_torch.pipelines import preprocess as pp
     from convex_dim_red_tpu_torch.pipelines.dataset import (
         Dataset, Variable, decode_cf_time)
+    from convex_dim_red_tpu_torch.pipelines.synthetic import (
+        synthetic_hadisst)
     t0 = time.perf_counter()
-    sst, time_days, lats, lons = synthetic_hadisst(**HADISST_SYNTHETIC)
-    coords = {
-        'time': Variable(('time',), time_days,
-                         {'units': 'days since %d-1-1'
-                          % HADISST_SYNTHETIC['start_year']}),
-        'latitude': Variable(('latitude',), lats),
-        'longitude': Variable(('longitude',), lons)}
+    raw = synthetic_hadisst(**HADISST_SYNTHETIC)
+    sst, coords = raw['sst'].data, raw.coords
     years, _ = decode_cf_time(coords['time'])
     data = np.asarray(sst, dtype=float)
     data = np.where(data <= -1000.0, np.nan, data)  # the CLI's ice flag
@@ -2071,21 +2102,31 @@ def hadisst_case_study_data():
           % (sst.shape, generated, time.perf_counter() - t0 - generated,
              grid, valid.shape[1], missing.size, n_train, val.shape[0]))
     return dict(train=train, val=val, missing=missing, grid=grid,
-                time=ds.coords['time'],
+                time=ds.coords[HADISST.time_name],
+                time_name=HADISST.time_name,
+                dims=(HADISST.lat_name, HADISST.lon_name),
                 coords={name: ds.coords[name] for name in
-                        (HADISST.lat_name, 'longitude')})
+                        (HADISST.lat_name, HADISST.lon_name)})
 
 
-def check_analysis(name, attrs, out, pattern_name, missing, audit, cost):
-    """The attrs finite, 178 held-out samples, the training cost's
-    float64 audit within 1e-4, the patterns NaN exactly on the mask."""
+def check_analysis(name, attrs, out, pattern_name, missing, audit, cost,
+                   test_size):
+    """The attrs finite (the held-out ones NaN when no sample is held
+    out, as the drivers write them), ``test_size`` held-out samples, the
+    training cost's float64 audit within 1e-4, the patterns NaN exactly
+    on the mask."""
     for key, value in attrs.items():
         try:
             number = float(value)
         except ValueError:
             continue  # init, reference
+        if test_size == 0 and key.startswith('test_set_') \
+                and key != 'test_set_size':
+            check(np.isnan(number), "%s: attr %s is %s with no held-out "
+                  "samples" % (name, key, value))
+            continue
         check(np.isfinite(number), "%s: attr %s is %s" % (name, key, value))
-    check(attrs['test_set_size'] == '178', "%s: test_set_size %s"
+    check(attrs['test_set_size'] == str(test_size), "%s: test_set_size %s"
           % (name, attrs['test_set_size']))
     rel = abs(audit / cost - 1.0)
     check(rel <= 1e-4, "%s: float64 audit %.6f vs cost %.6f" % (name, audit,
@@ -2095,6 +2136,57 @@ def check_analysis(name, attrs, out, pattern_name, missing, audit, cost):
     check(bool((nan == missing[None, :]).all()),
           "%s: patterns NaN off the land mask" % name)
     return rel
+
+
+def analysis_output(d, weights, patterns, attrs, name, n_components,
+                    cost_deltas=None, dictionary=None, n_modes=None):
+    """``build_output_dataset`` as a driver calls it on the case study's
+    data ``d``: over its grid, or with ``n_modes`` over the PCs' modes."""
+    from convex_dim_red_tpu_torch.cli import common
+    grid = n_modes is None
+    return common.build_output_dataset(
+        weights=weights, dictionary_over_samples=dictionary,
+        patterns=patterns, cost_deltas=cost_deltas,
+        time_values=d['time'].data, time_name=d['time_name'],
+        time_attrs=d['time'].attrs,
+        feature_dims=list(d['dims']) if grid else ['mode'],
+        feature_shape=list(d['grid']) if grid else [n_modes],
+        feature_coords=d['coords'] if grid else {},
+        missing_mask=d['missing'] if grid else np.zeros(n_modes, bool),
+        n_components=n_components, attrs=attrs, pattern_name=name)
+
+
+def run_path(paths, label, call):
+    """``call()`` with the launch counts set to 0 just before it and the
+    restart scheduler recorded: ``(result, wall, launches, the K1
+    launches its schedule implies)``; the launches go into ``paths``
+    under ``label``."""
+    import torch
+    reset_launches()
+    t0 = time.perf_counter()
+    result, calls = recording_schedules(call)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    paths[label] = launches
+    return result, wall, launches, scheduled_launches(calls)
+
+
+def hold_recorded(held, name, kernel, plain, captured, wrapper, calls):
+    """``hold_path_qp`` on each of the recorded launches ``calls`` of
+    ``wrapper``, into ``held``."""
+    check(sorted(captured[wrapper]) == list(calls),
+          "%s: launches %s recorded, not %s"
+          % (name, sorted(captured[wrapper]), list(calls)))
+    for call, operands in sorted(captured[wrapper].items()):
+        held["%s, launch %d" % (name, call)] = hold_path_qp(
+            "%s launch %d" % (name, call), kernel, plain, operands)
+
+
+def kmeans_audit(X64, model):
+    """The k-means winner's inertia re-costed on the host in float64."""
+    centres = model.cluster_centers_.double().cpu().numpy()
+    return float(np.sum((X64 - centres[model.labels_]) ** 2))
 
 
 def hold_path_qp(name, kernel, plain, operands):
@@ -2151,7 +2243,7 @@ def phase_case_study(card):
     from convex_dim_red_tpu_torch.parallel.restarts import _ONE_SHOT_ROUND
     from convex_dim_red_tpu_torch.pipelines import preprocess as pp
     d = hadisst_case_study_data()
-    train, val, missing, grid = d['train'], d['val'], d['missing'], d['grid']
+    train, val, missing = d['train'], d['val'], d['missing']
     # The analyses fit in float32 (torch's default dtype): the float64
     # audits take the data as the fit saw it.
     X64 = train.astype(np.float32).astype(np.float64)
@@ -2159,39 +2251,9 @@ def phase_case_study(card):
     k1 = {K1_WRAPPER: (0, _ONE_SHOT_ROUND)}
     k2_plain = _one_group(sq.quad_simplex_qp_packed_grouped_reference)
 
-    def output(weights, patterns, attrs, name, n_components=CASE_STUDY_K,
-               cost_deltas=None, dictionary=None, coords=d['coords'],
-               dims=('latitude', 'longitude'), shape=grid, mask=missing):
-        return common.build_output_dataset(
-            weights=weights, dictionary_over_samples=dictionary,
-            patterns=patterns, cost_deltas=cost_deltas,
-            time_values=d['time'].data, time_name='time',
-            time_attrs=d['time'].attrs, feature_dims=list(dims),
-            feature_shape=list(shape), feature_coords=coords,
-            missing_mask=mask, n_components=n_components, attrs=attrs,
-            pattern_name=name)
-
-    def run(label, call):
-        reset_launches()
-        t0 = time.perf_counter()
-        result, calls = recording_schedules(call)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read_launches()
-        paths[label] = launches
-        return result, wall, launches, scheduled_launches(calls)
-
-    def hold(name, kernel, plain, captured, wrapper, calls):
-        check(sorted(captured[wrapper]) == list(calls),
-              "%s: launches %s recorded, not %s"
-              % (name, sorted(captured[wrapper]), list(calls)))
-        for call, operands in sorted(captured[wrapper].items()):
-            held["%s, launch %d" % (name, call)] = hold_path_qp(
-                "%s launch %d" % (name, call), kernel, plain, operands)
-
     # k-means at bin/run_hadisst_kmeans_wrapper.sh's settings.
-    (model, onehot, attrs), wall, launches, _ = run(
-        "HadISST k-means analysis (k=4, best of 100, 100 trials)",
+    (model, onehot, attrs), wall, launches, _ = run_path(
+        paths, "HadISST k-means analysis (k=4, best of 100, 100 trials)",
         lambda: common.kmeans_analysis(
             train, val, n_components=CASE_STUDY_K, n_init=100,
             max_iterations=10000, n_trials=100, reference='uniform',
@@ -2199,11 +2261,10 @@ def phase_case_study(card):
     check(sum(launches.values()) == 0, "k-means analysis: %s" % launches)
     check(model.cluster_centers_.dtype == torch.float32,
           "k-means analysis fitted in %s" % model.cluster_centers_.dtype)
-    centres = model.cluster_centers_.double().cpu().numpy()
-    audit = float(np.sum((X64 - centres[model.labels_]) ** 2))
-    out = output(onehot, model.cluster_centers_, attrs, 'centroids')
+    out = analysis_output(d, onehot, model.cluster_centers_, attrs,
+                          'centroids', CASE_STUDY_K)
     rel = check_analysis("k-means", attrs, out, 'centroids', missing,
-                         audit, model.inertia_)
+                         kmeans_audit(X64, model), model.inertia_, len(val))
     print("  kmeans_analysis (k=4, n_init=100, 100 trials, max 10000 "
           "iterations): %.3f s, inertia %.1f (float64 audit rel diff "
           "%.1e), test inertia %s, gap %s, sk %s, n_iter %s, on %s"
@@ -2213,8 +2274,8 @@ def phase_case_study(card):
 
     # AA at the hadisst_aa driver's solver settings and its wrapper's.
     label = "HadISST AA analysis (k=4, best of 100)"
-    ((best, attrs), captured), wall, launches, k1_used = run(
-        label, lambda: capture_operands(lambda: common.aa_analysis(
+    ((best, attrs), captured), wall, launches, k1_used = run_path(
+        paths, label, lambda: capture_operands(lambda: common.aa_analysis(
             train, val, n_components=CASE_STUDY_K, delta=0.0,
             init='random', n_init=100, tolerance=1e-4, max_iterations=10000,
             random_seed=0, dictionary_solver_kwargs={'max_iterations': 1},
@@ -2225,11 +2286,12 @@ def phase_case_study(card):
           % (launches, k1_used))
     check(best['weights'].dtype == torch.float32,
           "AA analysis fitted in %s" % best['weights'].dtype)
-    out = output(best['weights'], best['archetypes'], attrs, 'archetypes',
-                 cost_deltas=best['cost_deltas'],
-                 dictionary=best['dictionary'])
+    out = analysis_output(d, best['weights'], best['archetypes'], attrs,
+                          'archetypes', CASE_STUDY_K,
+                          cost_deltas=best['cost_deltas'],
+                          dictionary=best['dictionary'])
     rel = check_analysis("AA", attrs, out, 'archetypes', missing,
-                         audit_cost_f64(best, X64), best['cost'])
+                         audit_cost_f64(best, X64), best['cost'], len(val))
     print("  aa_analysis (k=4, n_init=100, tolerance 1e-4 abs_delta_f, "
           "dictionary capped at 1, max_iterations 10000): %.3f s, %d K1 + "
           "%d K2 launches, n_iter %d, n_iters mean %.1f max %d (%d restarts "
@@ -2239,25 +2301,25 @@ def phase_case_study(card):
              float(np.mean(best['n_iters'])), int(np.max(best['n_iters'])),
              int(np.sum(best['n_iters'] >= 10000)), best['cost'], rel,
              attrs['test_set_cost'].strip(), card))
-    hold("K1 HadISST AA", sq.quad_simplex_qp_packed_grouped,
-         sq.quad_simplex_qp_packed_grouped_reference, captured, K1_WRAPPER,
-         k1[K1_WRAPPER])
-    hold("K2 HadISST AA transform", sq.quad_simplex_qp_packed, k2_plain,
-         captured, K2_WRAPPER, (0,))
+    hold_recorded(held, "K1 HadISST AA", sq.quad_simplex_qp_packed_grouped,
+                  sq.quad_simplex_qp_packed_grouped_reference, captured,
+                  K1_WRAPPER, k1[K1_WRAPPER])
+    hold_recorded(held, "K2 HadISST AA transform", sq.quad_simplex_qp_packed,
+                  k2_plain, captured, K2_WRAPPER, (0,))
 
     # PCA with 20 components, then GPNH on its PCs.
-    (result, attrs), wall, launches, _ = run(
-        "HadISST PCA(20) analysis", lambda: common.pca_analysis(
+    (result, attrs), wall, launches, _ = run_path(
+        paths, "HadISST PCA(20) analysis", lambda: common.pca_analysis(
             train, val, n_components=CASE_STUDY_PCS, tolerance=1e-8,
             device=DEVICE))
     check(sum(launches.values()) == 0, "PCA analysis: %s" % launches)
     pcs, eofs = result['pcs'], result['eofs']
     resid = X64 - pcs[:len(train)] @ eofs.astype(np.float64)
-    out = output(pcs[:len(train)], eofs, attrs, 'EOFs',
-                 n_components=CASE_STUDY_PCS)
+    out = analysis_output(d, pcs[:len(train)], eofs, attrs, 'EOFs',
+                          CASE_STUDY_PCS)
     rel = check_analysis("PCA", attrs, out, 'EOFs', missing,
                          0.5 * float(np.sum(resid ** 2)) / len(train),
-                         float(attrs['training_set_cost']))
+                         float(attrs['training_set_cost']), len(val))
     print("  pca_analysis (20 components): %.3f s, explained variance ratio "
           "%.4f, training cost %s (float64 audit rel diff %.1e), test cost "
           "%s, on %s" % (wall, float(np.sum(result['explained_variance_'
@@ -2267,6 +2329,41 @@ def phase_case_study(card):
 
     # The PCs as the PCA driver writes them (float64, every month).
     pc_train, pc_val, _ = pp.train_validation_split(pcs, validation_frac=0.1)
+    (model, attrs, won, captured), wall, launches, k1_used = run_path(
+        paths, "PCs GPNH analysis (k=4, best of 100)",
+        lambda: gpnh_analysis_recorded(
+            pc_train, pc_val, dict(CASE_STUDY_GPNH, n_components=CASE_STUDY_K),
+            k1))
+    check(launches == dict(K1=k1_used, K2=0, K3=0, K4=0),
+          "GPNH analysis: launches %s, expected %d of K1"
+          % (launches, k1_used))
+    out = analysis_output(d, won['weights'], won['dictionary'].T, attrs,
+                          'dictionary', CASE_STUDY_K,
+                          cost_deltas=won['cost_deltas'],
+                          n_modes=CASE_STUDY_PCS)
+    rel = check_analysis("GPNH", attrs, out, 'dictionary',
+                         np.zeros(CASE_STUDY_PCS, bool),
+                         gpnh_audit(won, pc_train.astype(np.float32)),
+                         won['cost'], len(pc_val))
+    print("  gpnh_analysis on the PCs (k=4, lambda_W 1e-3, n_init=100, "
+          "rel_delta_f 1e-6, weights QP capped at 1): %.3f s, %d K1 "
+          "launches, n_iter %d, n_iters mean %.1f max %d, cost %.6f (float64 "
+          "audit rel diff %.1e), test cost %s, on %s"
+          % (wall, launches["K1"], won['n_iter'],
+             float(np.mean(won['n_iters'])), int(np.max(won['n_iters'])),
+             won['cost'], rel, attrs['test_set_cost'].strip(), card))
+    hold_recorded(held, "K1 PCs GPNH", sq.quad_simplex_qp_packed_grouped,
+                  sq.quad_simplex_qp_packed_grouped_reference, captured,
+                  K1_WRAPPER, k1[K1_WRAPPER])
+    return paths, held
+
+
+def gpnh_analysis_recorded(train, val, settings, calls):
+    """``gpnh_analysis`` as a driver calls it, on the card, with the
+    winning ``gpnh_fit_restarts`` result kept and the QP kernels'
+    operands of ``calls`` recorded (``capture_operands``): ``(model,
+    attrs, the winner's fit result, the recorded operands)``."""
+    from convex_dim_red_tpu_torch.cli import common
     fits = []
     real_fit = common.gpnh_fit_restarts
 
@@ -2276,39 +2373,12 @@ def phase_case_study(card):
 
     common.gpnh_fit_restarts = keeping
     try:
-        ((model, attrs), captured), wall, launches, k1_used = run(
-            "PCs GPNH analysis (k=4, best of 100)",
-            lambda: capture_operands(lambda: common.gpnh_analysis(
-                pc_train, pc_val, n_components=CASE_STUDY_K, lambda_W=1e-3,
-                init='random', n_init=100, tolerance=1e-6,
-                max_iterations=10000, random_seed=0,
-                weights_solver_kwargs={'max_iterations': 1},
-                stopping_criterion='rel_delta_f', device=DEVICE), k1))
+        (model, attrs), captured = capture_operands(
+            lambda: common.gpnh_analysis(train, val, device=DEVICE,
+                                         **settings), calls)
     finally:
         common.gpnh_fit_restarts = real_fit
-    check(launches == dict(K1=k1_used, K2=0, K3=0, K4=0),
-          "GPNH analysis: launches %s, expected %d of K1"
-          % (launches, k1_used))
-    won = fits[-1]
-    out = output(won['weights'], won['dictionary'].T, attrs, 'dictionary',
-                 cost_deltas=won['cost_deltas'], coords={}, dims=('mode',),
-                 shape=[CASE_STUDY_PCS],
-                 mask=np.zeros(CASE_STUDY_PCS, bool))
-    rel = check_analysis("GPNH", attrs, out, 'dictionary',
-                         np.zeros(CASE_STUDY_PCS, bool),
-                         gpnh_audit(won, pc_train.astype(np.float32)),
-                         won['cost'])
-    print("  gpnh_analysis on the PCs (k=4, lambda_W 1e-3, n_init=100, "
-          "rel_delta_f 1e-6, weights QP capped at 1): %.3f s, %d K1 "
-          "launches, n_iter %d, n_iters mean %.1f max %d, cost %.6f (float64 "
-          "audit rel diff %.1e), test cost %s, on %s"
-          % (wall, launches["K1"], won['n_iter'],
-             float(np.mean(won['n_iters'])), int(np.max(won['n_iters'])),
-             won['cost'], rel, attrs['test_set_cost'].strip(), card))
-    hold("K1 PCs GPNH", sq.quad_simplex_qp_packed_grouped,
-         sq.quad_simplex_qp_packed_grouped_reference, captured, K1_WRAPPER,
-         k1[K1_WRAPPER])
-    return paths, held
+    return model, attrs, fits[-1], captured
 
 
 # ---------------------------------------------------------------------------
@@ -2782,6 +2852,464 @@ def phase_mesh_kernels(est):
     return held
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the JRA-55 case study at full size, in memory
+# ---------------------------------------------------------------------------
+
+#: The JRA-55 case study: the reanalysis' own span and grid (1958-2018,
+#: 145 x 288 at 1.25 degrees; SURVEY.md, run_jra55_kmeans.py), seed 0;
+#: the wrappers' 167 EOFs (bin/run_jra55_pca_aa_wrapper.sh), phase 21's
+#: k, and the delta of the JAX package's own AA tests.
+JRA55_SYNTHETIC = dict(kind='grid', start_year=1958, n_years=61, n_lat=145,
+                       n_lon=288, seed=0)
+JRA55_EOFS, JRA55_DELTA = 167, 0.1
+#: The jra55_pca_aa driver's solver caps (both inner solvers at one step,
+#: rel_delta_f; cli/drivers.py) and its wrapper's fit settings.
+JRA55_AA = dict(delta=JRA55_DELTA, init='random', n_init=100,
+                tolerance=1e-6, max_iterations=10000, random_seed=0,
+                dictionary_solver_kwargs={'max_iterations': 1},
+                weights_solver_kwargs={'max_iterations': 1},
+                stopping_criterion='rel_delta_f')
+#: The k-means wrappers' settings (bin/run_jra55_kmeans_wrapper.sh,
+#: bin/run_jra55_pca_kmeans_wrapper.sh) with the driver's defaults.
+JRA55_KMEANS = dict(n_init=100, max_iterations=10000, n_trials=100,
+                    reference='pca', random_seed=0, init='k-means++',
+                    tolerance=1e-4)
+#: A float32 scale factor's distance past its box that rounding allows.
+ALPHA_SLACK = 1e-6
+
+
+def jra55_case_study_data():
+    """The synthetic JRA-55 grid through the port's pipelines as the
+    jra55 drivers take it (``cli/common.py:load_field`` and
+    ``cli/drivers.py:_prepare``): the JRA55_HGT spec's year and latitude
+    filters (20-90 N), scos weights, flatten, missing mask and 0.1
+    chronological split, in float64 as a driver reads them."""
+    from convex_dim_red_tpu_torch.cli.specs import JRA55_HGT as spec
+    from convex_dim_red_tpu_torch.pipelines import preprocess as pp
+    from convex_dim_red_tpu_torch.pipelines.synthetic import synthetic_jra55
+    t0 = time.perf_counter()
+    ds = synthetic_jra55(**JRA55_SYNTHETIC)
+    shape = ds[spec.var_name].data.shape
+    generated = time.perf_counter() - t0
+    ds = ds.sel_time_years(spec.time_name, spec.start_year, spec.end_year)
+    ds = ds.sel_range(spec.lat_name, spec.min_latitude, spec.max_latitude)
+    weights = pp.latitude_weights(ds.coords[spec.lat_name].data,
+                                  spec.default_lat_weights)
+    field = ds[spec.var_name].data
+    flat = pp.weight_and_flatten(field, weights[:, None])
+    missing = pp.missing_feature_mask(flat)
+    valid = flat[:, ~missing]
+    train, val, n_train = pp.train_validation_split(
+        valid, validation_frac=spec.validation_frac)
+    grid = list(field.shape[1:])
+    print("  synthetic JRA-55 grid %s float32 (%.0f MB): generated in %.1f "
+          "s, preparation %.1f s on the host; band %s, %d points (%d "
+          "missing), %d training and %d held-out months, %s"
+          % (shape, 4e-6 * np.prod(shape), generated,
+             time.perf_counter() - t0 - generated, grid, valid.shape[1],
+             int(missing.sum()), n_train, val.shape[0], valid.dtype))
+    check(not missing.any(), "JRA-55 grid: missing points")
+    return dict(train=train, val=val, missing=missing, grid=grid,
+                time=ds.coords[spec.time_name], time_name=spec.time_name,
+                dims=(spec.lat_name, spec.lon_name),
+                coords={name: ds.coords[name] for name in
+                        (spec.lat_name, spec.lon_name)})
+
+
+def check_alpha(name, alpha, delta):
+    """Scale factors inside ``[1 - delta, 1 + delta]`` to float32
+    rounding; returns their range."""
+    lo, hi = float(alpha.min()), float(alpha.max())
+    check(1.0 - delta - ALPHA_SLACK <= lo and hi <= 1.0 + delta + ALPHA_SLACK,
+          "%s: alpha in [%.7f, %.7f], outside [%g, %g]"
+          % (name, lo, hi, 1.0 - delta, 1.0 + delta))
+    return lo, hi
+
+
+def phase_jra55_case_study(card):
+    """The JRA-55 drivers' analyses on the reanalysis-sized synthetic
+    grid, as the drivers call them (float64 host arrays,
+    ``device='cuda'``, so fitted in float32): PCA(167) of the grid, AA
+    with delta = 0.1 on the PCs at jra55_pca_aa's caps, GPNH on the PCs,
+    k-means with the PCA-reference gap on the PCs and on the grid; K1
+    held to its plain version on the AA analysis' operands and timed at
+    its one-iteration launch; then a float64 delta = 0.1 fit on the card
+    against the CPU and the delta = 0.1 estimator with K2 and its
+    transform, K2 held to its plain version on the operands of the fit's
+    first launch and of the transform's.  Returns ``(paths, held, K1's
+    times at the AA launch)``."""
+    import torch
+    from convex_dim_red_tpu_torch.cli import common
+    from convex_dim_red_tpu_torch.cli.specs import JRA55_PCS
+    from convex_dim_red_tpu_torch.ops import simplex_qp as sq
+    from convex_dim_red_tpu_torch.parallel.restarts import _ONE_SHOT_ROUND
+    from convex_dim_red_tpu_torch.pipelines import preprocess as pp
+    d = jra55_case_study_data()
+    train, val, missing = d['train'], d['val'], d['missing']
+    X64 = train.astype(np.float32).astype(np.float64)
+    paths, held = {}, {}
+    k1 = {K1_WRAPPER: (0, _ONE_SHOT_ROUND)}
+
+    # PCA with the wrappers' 167 EOFs (the Gram path: 16,416 features >
+    # 4 x 659 samples), tolerance 1e-8.
+    (result, attrs), wall, launches, _ = run_path(
+        paths, "JRA-55 PCA(167) analysis", lambda: common.pca_analysis(
+            train, val, n_components=JRA55_EOFS, tolerance=1e-8,
+            random_seed=0, device=DEVICE))
+    check(sum(launches.values()) == 0, "JRA-55 PCA: %s" % launches)
+    pcs, eofs = result['pcs'], result['eofs']
+    resid = X64 - pcs[:len(train)] @ eofs.astype(np.float64)
+    out = analysis_output(d, pcs[:len(train)], eofs, attrs, 'EOFs',
+                          JRA55_EOFS)
+    rel = check_analysis("JRA-55 PCA", attrs, out, 'EOFs', missing,
+                         0.5 * float(np.sum(resid ** 2)) / len(train),
+                         float(attrs['training_set_cost']), len(val))
+    check(bool(np.isfinite(pcs).all()) and pcs.shape == (
+        len(train) + len(val), JRA55_EOFS), "JRA-55 PCs: %s" % (pcs.shape,))
+    print("  pca_analysis (167 components, tolerance 1e-8) of %d x %d: "
+          "%.3f s, explained variance ratio %.4f (first three %s), training "
+          "cost %s (float64 audit rel diff %.1e), test cost %s, on %s"
+          % (len(train), train.shape[1], wall,
+             float(np.sum(result['explained_variance_ratio'])),
+             np.round(result['explained_variance_ratio'][:3], 4).tolist(),
+             attrs['training_set_cost'].strip(), rel,
+             attrs['test_set_cost'].strip(), card))
+
+    # The PCs as the PC drivers read them: every month, none held out.
+    pc_train, pc_val, _ = pp.train_validation_split(
+        pcs, validation_frac=JRA55_PCS.validation_frac)
+    P64 = pc_train.astype(np.float32).astype(np.float64)
+
+    # AA with delta = 0.1 at the jra55_pca_aa driver's caps.
+    ((best, attrs), captured), wall, launches, k1_used = run_path(
+        paths, "JRA-55 PCs AA analysis (k=4, delta 0.1, best of 100)",
+        lambda: capture_operands(lambda: common.aa_analysis(
+            pc_train, pc_val, n_components=CASE_STUDY_K, device=DEVICE,
+            **JRA55_AA), k1))
+    check(launches == dict(K1=k1_used, K2=0, K3=0, K4=0),
+          "JRA-55 AA: launches %s, expected %d of K1" % (launches, k1_used))
+    check(best['weights'].dtype == torch.float32,
+          "JRA-55 AA fitted in %s" % best['weights'].dtype)
+    lo, hi = check_alpha("JRA-55 AA", best['alpha'], JRA55_DELTA)
+    check_simplex_rows("JRA-55 AA weights", best['weights'])
+    check_simplex_rows("JRA-55 AA C", best['dictionary']
+                       / best['alpha'][:, None])
+    out = analysis_output(d, best['weights'], best['archetypes'], attrs,
+                          'archetypes', CASE_STUDY_K,
+                          cost_deltas=best['cost_deltas'],
+                          dictionary=best['dictionary'], n_modes=JRA55_EOFS)
+    rel = check_analysis("JRA-55 AA", attrs, out, 'archetypes',
+                         np.zeros(JRA55_EOFS, bool),
+                         audit_cost_f64(best, P64), best['cost'],
+                         len(pc_val))
+    n_iters = best['n_iters']
+    print("  aa_analysis on the PCs (k=4, delta 0.1, n_init=100, rel_delta_f "
+          "1e-6, both solvers capped at 1, max_iterations 10000): %.3f s, %d "
+          "K1 launches, n_iter %d, n_iters mean %.1f min %d max %d (%d at "
+          "the cap), cost %.6f (float64 audit of Z alpha C X rel diff "
+          "%.1e), alpha in [%.6f, %.6f], on %s"
+          % (wall, launches["K1"], best['n_iter'], float(np.mean(n_iters)),
+             int(np.min(n_iters)), int(np.max(n_iters)),
+             int(np.sum(n_iters >= JRA55_AA['max_iterations'])),
+             best['cost'], rel, lo, hi, card))
+    hold_recorded(held, "K1 JRA-55 AA", sq.quad_simplex_qp_packed_grouped,
+                  sq.quad_simplex_qp_packed_grouped_reference, captured,
+                  K1_WRAPPER, k1[K1_WRAPPER])
+    As, Bs, X0s, kw = captured[K1_WRAPPER][0]
+    kw = dict(kw)
+    projection = kw.pop("projection")
+    check(kw.pop("mask") is None and kw["max_iterations"] == 1,
+          "JRA-55 AA's K1 arguments %s" % kw)
+    aa_times = dict(R=Bs.shape[0], n=Bs.shape[1], k=Bs.shape[2], launch=0,
+                    **kernel_times("K1 JRA-55 AA launch 0",
+                                   sq.quad_simplex_qp_packed_grouped,
+                                   sq.quad_simplex_qp_packed_grouped_reference,
+                                   (As, Bs, X0s), projection,
+                                   sq.team_width(CASE_STUDY_K),
+                                   sq.PACKED_THREADS, lone=True, **kw))
+
+    # GPNH on the PCs at the jra55_pca_gpnh driver's settings.
+    (model, attrs, won, captured), wall, launches, k1_used = run_path(
+        paths, "JRA-55 PCs GPNH analysis (k=4, best of 100)",
+        lambda: gpnh_analysis_recorded(
+            pc_train, pc_val, dict(CASE_STUDY_GPNH,
+                                   n_components=CASE_STUDY_K), k1))
+    check(launches == dict(K1=k1_used, K2=0, K3=0, K4=0),
+          "JRA-55 GPNH: launches %s, expected %d of K1" % (launches, k1_used))
+    check_simplex_rows("JRA-55 GPNH weights", won['weights'])
+    out = analysis_output(d, won['weights'], won['dictionary'].T, attrs,
+                          'dictionary', CASE_STUDY_K,
+                          cost_deltas=won['cost_deltas'], n_modes=JRA55_EOFS)
+    rel = check_analysis("JRA-55 GPNH", attrs, out, 'dictionary',
+                         np.zeros(JRA55_EOFS, bool),
+                         gpnh_audit(won, pc_train.astype(np.float32)),
+                         won['cost'], len(pc_val))
+    print("  gpnh_analysis on the PCs (k=4, lambda_W 1e-3, n_init=100, "
+          "rel_delta_f 1e-6, weights QP capped at 1): %.3f s, %d K1 "
+          "launches, n_iter %d, n_iters mean %.1f max %d, cost %.6f (float64 "
+          "audit rel diff %.1e), on %s"
+          % (wall, launches["K1"], won['n_iter'],
+             float(np.mean(won['n_iters'])), int(np.max(won['n_iters'])),
+             won['cost'], rel, card))
+    hold_recorded(held, "K1 JRA-55 GPNH", sq.quad_simplex_qp_packed_grouped,
+                  sq.quad_simplex_qp_packed_grouped_reference, captured,
+                  K1_WRAPPER, k1[K1_WRAPPER])
+
+    # k-means with the PCA-reference gap, on the PCs and on the grid.
+    for label, data, held_out, X_audit, n_modes in (
+            ("PCs", pc_train, pc_val, P64, JRA55_EOFS),
+            ("grid", train, val, X64, None)):
+        (model, onehot, attrs), wall, launches, _ = run_path(
+            paths, "JRA-55 %s k-means analysis (k=4, best of 100, 100 PCA "
+            "trials)" % label, lambda: common.kmeans_analysis(
+                data, held_out, n_components=CASE_STUDY_K, device=DEVICE,
+                **JRA55_KMEANS))
+        check(sum(launches.values()) == 0, "JRA-55 %s k-means: %s"
+              % (label, launches))
+        out = analysis_output(d, onehot, model.cluster_centers_, attrs,
+                              'centroids', CASE_STUDY_K, n_modes=n_modes)
+        rel = check_analysis(
+            "JRA-55 %s k-means" % label, attrs, out, 'centroids',
+            missing if n_modes is None else np.zeros(n_modes, bool),
+            kmeans_audit(X_audit, model), model.inertia_, len(held_out))
+        check(attrs['reference'] == 'pca', "JRA-55 k-means reference %s"
+              % attrs['reference'])
+        print("  kmeans_analysis on the %s (%d x %d; k=4, n_init=100, 100 "
+              "PCA-reference trials): %.3f s, inertia %.1f (float64 audit "
+              "rel diff %.1e), gap %s, sk %s, n_iter %s, test inertia %s, "
+              "on %s" % (label, data.shape[0], data.shape[1], wall,
+                         model.inertia_, rel, attrs['gap_statistic'].strip(),
+                         attrs['gap_sk'].strip(), attrs['n_iter'],
+                         attrs['test_set_inertia'].strip(), card))
+
+    paths.update(jra55_delta_card_against_cpu())
+    paths.update(jra55_delta_estimator(pc_train, card, held))
+    return paths, held, aa_times
+
+
+def jra55_delta_card_against_cpu():
+    """Phase 6's float64 fit with delta = 0.1 (``fit_on_card_and_cpu``):
+    costs within 1e-6 relative, equal ``n_iters``, and the winner's alpha
+    within 1e-6 and inside its box."""
+    res, _, launches = fit_on_card_and_cpu(JRA55_DELTA)
+    card, cpu = res["cuda"], res["cpu"]
+    dalpha = float((card['alpha'].cpu() - cpu['alpha']).abs().max())
+    check_alpha("delta fit on the card", card['alpha'], JRA55_DELTA)
+    print("  delta %g: the winner's alpha on the card vs the CPU max|diff| "
+          "%.3e (alpha %s)" % (JRA55_DELTA, dalpha, np.round(
+              card['alpha'].cpu().numpy(), 4).tolist()))
+    check(dalpha <= 1e-6, "delta fit: card and CPU alpha differ by %.3e"
+          % dalpha)
+    return {"AA delta 0.1 float64 fit, card against CPU": launches}
+
+
+def jra55_delta_model():
+    """``ArchetypalAnalysis(4, delta=0.1)`` at the jra55_pca_aa driver's
+    settings, with 'pallas' weights (K2 every iteration)."""
+    from convex_dim_red_tpu_torch import ArchetypalAnalysis
+    return ArchetypalAnalysis(
+        CASE_STUDY_K, delta=JRA55_DELTA, init='random', random_state=0,
+        tolerance=JRA55_AA['tolerance'],
+        max_iterations=JRA55_AA['max_iterations'],
+        stopping_criterion=JRA55_AA['stopping_criterion'],
+        dictionary_solver_kwargs=JRA55_AA['dictionary_solver_kwargs'],
+        weights_solver_kwargs=dict(JRA55_AA['weights_solver_kwargs'],
+                                   backend='pallas'))
+
+
+def jra55_delta_estimator(pcs_host, card, held):
+    """``jra55_delta_model()`` fitted on the JRA-55 PCs, then
+    ``transform`` (one K2 launch, solved to the estimator's
+    ``max_iterations``); K2 held to its plain version, into ``held``, on
+    the operands of the fit's first launch and of the transform's."""
+    import torch
+    from convex_dim_red_tpu_torch.ops import simplex_qp as sq
+    X = torch.as_tensor(pcs_host, dtype=torch.float32, device=DEVICE)
+    k2_plain = _one_group(sq.quad_simplex_qp_packed_grouped_reference)
+    model = jra55_delta_model()
+    reset_launches()
+    t0 = time.perf_counter()
+    _, fit_ops = capture_operands(lambda: model.fit(X), {K2_WRAPPER: (0,)})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    audit = audit_cost_f64(dict(weights=model.weights,
+                                dictionary=model.dictionary),
+                           pcs_host.astype(np.float32))
+    rel = abs(audit / model.cost - 1.0)
+    lo, hi = check_alpha("delta estimator", model.alpha, JRA55_DELTA)
+    check_factors("delta estimator", model, X)
+    check(launches == dict(K1=0, K2=model.n_iter, K3=0, K4=0),
+          "delta estimator: launches %s for %d iterations"
+          % (launches, model.n_iter))
+    check(rel <= 1e-4, "delta estimator: audit %.6f vs cost %.6f"
+          % (audit, model.cost))
+    reset_launches()
+    t0 = time.perf_counter()
+    (W, cost), transform_ops = capture_operands(lambda: model.transform(X),
+                                                {K2_WRAPPER: (0,)})
+    torch.cuda.synchronize()
+    t_wall = time.perf_counter() - t0
+    t_launches = read_launches()
+    print("  ArchetypalAnalysis(4, delta=0.1), 'pallas' weights, on the PCs: "
+          "fit %.3f s, n_iter %d, cost %.6f (float64 audit rel diff %.1e), "
+          "alpha in [%.6f, %.6f], launches %s; transform %.4f s, cost %.6f, "
+          "launches %s, on %s"
+          % (wall, model.n_iter, model.cost, rel, lo, hi, launches, t_wall,
+             cost, t_launches, card))
+    check(t_launches == dict(K1=0, K2=1, K3=0, K4=0),
+          "delta transform: launches %s" % t_launches)
+    check(cost <= model.cost * 1.0001, "delta transform cost %.6f above the "
+          "fit's %.6f" % (cost, model.cost))
+    check_simplex_rows("delta transform", W)
+    hold_recorded(held, "K2 JRA-55 delta estimator fit",
+                  sq.quad_simplex_qp_packed, k2_plain, fit_ops, K2_WRAPPER,
+                  (0,))
+    hold_recorded(held, "K2 JRA-55 delta estimator transform",
+                  sq.quad_simplex_qp_packed, k2_plain, transform_ops,
+                  K2_WRAPPER, (0,))
+    return {"AA estimator k=4, delta 0.1, on the JRA-55 PCs, fit":
+            launches,
+            "AA estimator k=4, delta 0.1, transform": t_launches}
+
+
+#: ``--scale-check-ab``: the order of one round of the A/B of the
+#: scale-factor SPG's host reads (every 8 steps, ``quad_spg``'s default,
+#: and every step), and the iteration caps of the two profiled runs,
+#: whose difference is the profile of an iteration.
+SCALE_AB_ORDER = (8, 1, 1, 8)
+SCALE_PROFILE_CAPS = (64, 128)
+
+
+def set_scale_check_every(every):
+    """How many scale-factor SPG steps run between two host reads of its
+    stop, in the estimator and the restart runners."""
+    from convex_dim_red_tpu_torch.models import archetypal_analysis
+    from convex_dim_red_tpu_torch.parallel import sharded_aa
+    archetypal_analysis._SCALE_CHECK_EVERY = every
+    sharded_aa._SCALE_CHECK_EVERY = every
+
+
+def profile_run(run):
+    """``run()`` under ``torch.profiler`` and, again, under the CUDA sync
+    debug mode: its wall, the device's busy time (its kernels'), the
+    number of kernels and of host syncs, and the kernels by device
+    time."""
+    import warnings
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return dict(wall_ms=wall_ms,
+                busy_ms=1e-3 * sum(e.self_device_time_total
+                                   for e in kernels),
+                kernels=sum(e.count for e in kernels),
+                syncs=sum("synchroniz" in str(w.message) for w in caught),
+                by_kernel={e.key: (1e-3 * e.self_device_time_total, e.count)
+                           for e in kernels})
+
+
+def scale_check_ab():
+    """``--scale-check-ab``: phase 25's two delta = 0.1 paths on the
+    JRA-55 PCs, ``aa_analysis`` and the estimator's fit, with the
+    scale-factor SPG reading its stop every 8 steps and every step, in
+    the order ``SCALE_AB_ORDER`` after one warm run of each; every run
+    must give the same cost, ``n_iters`` and launches.  Then
+    ``aa_analysis`` capped at each of ``SCALE_PROFILE_CAPS`` under the
+    profiler: the difference of the two runs over their iterations is
+    one iteration's wall, device busy time, kernels and host syncs."""
+    import torch
+    from convex_dim_red_tpu_torch.cli import common
+    from convex_dim_red_tpu_torch.cli.specs import JRA55_PCS
+    from convex_dim_red_tpu_torch.pipelines import preprocess as pp
+    card = phase_device()
+    phase_build()
+    d = jra55_case_study_data()
+    result, _ = common.pca_analysis(d['train'], d['val'],
+                                    n_components=JRA55_EOFS, tolerance=1e-8,
+                                    random_seed=0, device=DEVICE)
+    pcs, pc_val, _ = pp.train_validation_split(
+        result['pcs'], validation_frac=JRA55_PCS.validation_frac)
+    X = torch.as_tensor(pcs, dtype=torch.float32, device=DEVICE)
+
+    def analysis(**kw):
+        best, _ = common.aa_analysis(pcs, pc_val, n_components=CASE_STUDY_K,
+                                     device=DEVICE, **dict(JRA55_AA, **kw))
+        return best['cost'], best['n_iters']
+
+    def estimator():
+        model = jra55_delta_model().fit(X)
+        return model.cost, np.array([model.n_iter])
+
+    runs = {"aa_analysis": analysis, "estimator fit": estimator}
+    walls = {label: {every: [] for every in set(SCALE_AB_ORDER)}
+             for label in runs}
+    seen = {}
+    set_scale_check_every(1)
+    for run in runs.values():
+        run()
+    for every in SCALE_AB_ORDER:
+        set_scale_check_every(every)
+        for label, run in runs.items():
+            reset_launches()
+            t0 = time.perf_counter()
+            cost, n_iters = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            walls[label][every].append(wall)
+            got = (float(cost), np.asarray(n_iters).tolist(),
+                   read_launches())
+            check(seen.setdefault(label, got) == got,
+                  "%s, a read every %d steps: %s, not %s"
+                  % (label, every, got, seen[label]))
+            print("  %s, a read every %d scale step(s): %.3f s, cost %.6f, "
+                  "n_iters summed %d, launches %s, on %s"
+                  % (label, every, wall, got[0], int(np.sum(n_iters)),
+                     got[2], card), flush=True)
+    set_scale_check_every(1)
+    for cap in SCALE_PROFILE_CAPS:
+        analysis(max_iterations=cap)
+    prof = [profile_run(lambda: analysis(max_iterations=cap))
+            for cap in SCALE_PROFILE_CAPS]
+    span = SCALE_PROFILE_CAPS[1] - SCALE_PROFILE_CAPS[0]
+    per = {key: (prof[1][key] - prof[0][key]) / span
+           for key in ("wall_ms", "busy_ms", "kernels", "syncs")}
+    per["idle_share"] = 1.0 - per["busy_ms"] / per["wall_ms"]
+    print("  aa_analysis, one iteration of 100 restarts (runs capped at %d "
+          "and %d iterations, the difference): wall %.3f ms, device busy "
+          "%.4f ms (idle %.1f%%), %.1f kernels, %.2f host syncs, on %s"
+          % (SCALE_PROFILE_CAPS + (per["wall_ms"], per["busy_ms"],
+                                   100.0 * per["idle_share"],
+                                   per["kernels"], per["syncs"], card)))
+    top = sorted(((v[0] - prof[0]["by_kernel"].get(key, (0.0, 0))[0],
+                   v[1] - prof[0]["by_kernel"].get(key, (0.0, 0))[1], key)
+                  for key, v in prof[1]["by_kernel"].items()), reverse=True)
+    for ms, count, key in top[:12]:
+        print("    %8.4f ms %6.1f calls an iteration  %s"
+              % (ms / span, count / span, key[:90]))
+    print(card)
+    print(json.dumps({"scale_check_ab": {
+        label: {"every %d" % every: times for every, times in w.items()}
+        for label, w in walls.items()}, "iteration": per}))
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_device()
@@ -2849,6 +3377,13 @@ def main():
     phase("mesh: K1 and K2 on a rank's local operands")
     for key, entry in phase_mesh_kernels(estimator_ranks).items():
         kernels[key[:2]].setdefault("mesh_shapes", {})[key[3:]] = entry
+    phase("JRA-55 case study at full size, in memory")
+    jra55_paths, held, kernels["K1"]["jra55_aa_shape"] = \
+        phase_jra55_case_study(card)
+    paths.update(jra55_paths)
+    for key, entry in held.items():  # "K1 JRA-55 AA, launch 0": ...
+        kernels[key[:2]].setdefault("case_study_shapes", {})[
+            key[3:]] = entry
     print("all phases passed in %.1f s" % (time.perf_counter() - t_start))
     print(card)
     by_path = {key: {path: counts[key] for path, counts in paths.items()
@@ -2865,4 +3400,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--scale-check-ab"]:
+        scale_check_ab()
+    elif sys.argv[1:]:
+        raise SystemExit("usage: python3 chip_smoke.py [--scale-check-ab]")
+    else:
+        main()

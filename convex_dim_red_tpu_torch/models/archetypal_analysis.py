@@ -72,6 +72,13 @@ __all__ = [
 
 INITIALIZATION_METHODS = (None, 'random', 'furthest_sum', 'custom')
 
+#: The scale-factor subproblem (k unknowns in a box a restart) is mostly
+#: solved in one SPG step: its solve reads whether every restart is done
+#: after each step, and leaves then instead of running frozen steps up
+#: to ``quad_spg``'s next read.  Frozen problems do not change, so this
+#: moves no result.
+_SCALE_CHECK_EVERY = 1
+
 
 def _scalar_dtype(dtype):
     """Dtype for cost and convergence scalars: the working dtype, as on
@@ -161,6 +168,7 @@ def update_kernel_aa_scale_factors(alpha, trace_K, CKZ, ZtZ, CKCt, delta,
     a = quad_spg(lambda v: (v @ M.T) / scale,
                  (torch.diagonal(CKZ) / scale)[None], alpha[None],
                  lambda v: torch.clamp(v, lo, hi),
+                 check_every=_SCALE_CHECK_EVERY,
                  **_spg_cfg_to_quad_kwargs(cfg))
     return a[0]
 

@@ -35,7 +35,8 @@ import torch
 
 from ..models._common import (QPSolverConfig, SPGSolverConfig,
                               has_converged, make_config)
-from ..models.archetypal_analysis import (_cost_from_parts,
+from ..models.archetypal_analysis import (_SCALE_CHECK_EVERY,
+                                          _cost_from_parts,
                                           _spg_cfg_to_quad_kwargs)
 from ..models.gpnh_convex_coding import (
     _SCALAR_DTYPE as _GPNH_SDT, _cost_from_parts as _gpnh_cost_from_parts,
@@ -220,7 +221,8 @@ def _aa_pre_weights(K_loc, Z_loc, C, alpha, *, delta, do_scale,
         alpha = quad_spg(
             lambda a: (M @ a[:, :, None])[:, :, 0] / n_samples,
             torch.diagonal(CKZ, dim1=1, dim2=2) / n_samples, alpha,
-            project, agree=sh.agree, **scale_kwargs)
+            project, agree=sh.agree, check_every=_SCALE_CHECK_EVERY,
+            **scale_kwargs)
 
     KZD = sh.gather_rows(KZ_loc * alpha[:, None, :], 1)    # (R, n, k)
     DZtZD = (alpha[:, :, None] * ZtZ) * alpha[:, None, :]

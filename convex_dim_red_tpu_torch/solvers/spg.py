@@ -268,7 +268,8 @@ def _batch_amax(v):
 def quad_spg(matvec, B, x0, project, alpha0=-1.0,
              alpha_min=1e-5, alpha_max=1e3,
              epsilon_one=1e-10, epsilon_two=1e-6,
-             max_iterations=1000, agree=None):
+             max_iterations=1000, agree=None,
+             check_every=_DONE_CHECK_EVERY):
     """Projected spectral gradient for ``min 0.5<x,Hx> - <B,x>`` over a
     convex set, for a batch of problems along the leading axis.
 
@@ -278,7 +279,11 @@ def quad_spg(matvec, B, x0, project, alpha0=-1.0,
     ``H x`` is carried incrementally, one ``matvec`` per iteration.
     ``agree`` (a sharded solve, whose ``matvec`` runs a collective)
     maps this process's host stop flag to the one every process of its
-    group takes, so all leave the loop together.
+    group takes, so all leave the loop together.  ``check_every``:
+    iterations between two host reads of whether every problem is done;
+    a finished problem is frozen, so it moves no result, only how many
+    frozen iterations run before the loop leaves and how often the host
+    waits.
     Returns the projected solutions, ``(R, ...)``.
     """
     x = project(x0)
@@ -306,7 +311,7 @@ def quad_spg(matvec, B, x0, project, alpha0=-1.0,
     stall = torch.zeros((R,), dtype=torch.int32, device=x.device)
     done = torch.zeros((R,), dtype=torch.bool, device=x.device)
     for it in range(int(max_iterations)):
-        if it and it % _DONE_CHECK_EVERY == 0:
+        if it and it % check_every == 0:
             stop = bool(done.all())
             if agree is not None:
                 stop = agree(stop)

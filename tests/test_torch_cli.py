@@ -17,10 +17,12 @@ the ``float64_default`` fixture for torch; the drivers' float32 default
 is tested last.
 """
 
+import functools
 import os
 import runpy
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -29,12 +31,17 @@ from convex_dim_red_tpu.cli import anomalies as janomalies
 from convex_dim_red_tpu.cli import common as jcommon
 from convex_dim_red_tpu.cli import drivers as jdrivers
 from convex_dim_red_tpu.models._common import QPSolverConfig as JQPConfig
+from convex_dim_red_tpu.models.archetypal_analysis import _as_key
+from convex_dim_red_tpu.parallel import restarts as jrestarts
 from convex_dim_red_tpu_torch.cli import anomalies as tanomalies
 from convex_dim_red_tpu_torch.cli import common as tcommon
 from convex_dim_red_tpu_torch.cli import drivers as tdrivers
 from convex_dim_red_tpu_torch.models._common import (QPSolverConfig,
                                                      make_config)
+from convex_dim_red_tpu_torch.parallel import restarts as trestarts
 from convex_dim_red_tpu_torch.pipelines.dataset import open_dataset
+from convex_dim_red_tpu_torch.pipelines.synthetic import synthetic_jra55
+from convex_dim_red_tpu_torch.utils.interop import states_from_numpy
 
 torch.set_num_threads(1)
 
@@ -216,6 +223,72 @@ def test_aa_transform_threads_the_configured_backend(monkeypatch):
                                      make_config(QPSolverConfig, cfg), 50)
         assert torch.allclose(Z.sum(dim=1), torch.ones(10, dtype=Z.dtype))
     assert captured == ['auto', 'xla', 'pallas']
+
+
+@pytest.mark.parametrize("max_iterations", [10, 15])
+def test_aa_analysis_with_scale_factors_matches_jax(max_iterations,
+                                                    monkeypatch):
+    """``aa_analysis`` with delta = 0.1 at the jra55_pca_aa driver's
+    solver settings (both inner solvers capped at one step, rel_delta_f,
+    tolerance 1e-6, random init), float64, on small synthetic PCs with
+    no held-out months (the PC drivers hold none out), from the JAX
+    analysis' restart states.  The JAX restarts run their grouped
+    runners, which pose the scale-factor subproblem as the port does
+    (tests/test_torch_restarts.py shows that the vmapped runners differ
+    only by its normalisation).  Per-restart costs agree to 1e-8
+    relative and alpha to 1e-8, with the same winner.  Every restart
+    stops at the cap: at these caps (both inner solvers at one step) the
+    alternating map amplifies a difference in rounding about tenfold
+    every few iterations from the 15th on, and JAX's own two runners,
+    which sum in other orders, part from each other as much as the port
+    parts from either (tests/test_torch_restarts.py,
+    ``test_scale_relaxed_fit_parts_from_jax_as_jax_parts_from_itself``)."""
+    pcs = synthetic_jra55('pcs', n_years=5, n_modes=8)['PCs'].data
+    kw = dict(n_components=3, delta=0.1, init='random', n_init=6,
+              tolerance=1e-6, max_iterations=max_iterations,
+              random_seed=0, dictionary_solver_kwargs={'max_iterations': 1},
+              weights_solver_kwargs={'max_iterations': 1},
+              stopping_criterion='rel_delta_f')
+    empty = pcs[:0]
+    monkeypatch.setattr(jcommon, 'aa_fit_restarts', functools.partial(
+        jrestarts.aa_fit_restarts, grouped=True))
+    want, want_attrs = jcommon.aa_analysis(pcs, empty, **kw)
+
+    # The JAX analysis' fit key (jcommon.aa_analysis: one split of the
+    # seed's key) and its restart states.
+    k_fit = jax.random.split(_as_key(0), 3)[1]
+    init = functools.partial(
+        jrestarts._init_aa_state, n_samples=pcs.shape[0], n_components=3,
+        init='random', diss=None, n_extra_steps=10, component_mask=None,
+        do_scale=True, dtype=jnp.float64)
+    states = states_from_numpy(
+        *jax.vmap(init, in_axes=(0, None))(jax.random.split(k_fit, 6),
+                                           jnp.asarray(0.1)),
+        device='cpu', dtype=torch.float64)
+    monkeypatch.setattr(trestarts, '_init_aa_state',
+                        lambda *args, **kwargs: states)
+    got, attrs = tcommon.aa_analysis(pcs, empty, device='cpu', **kw)
+
+    np.testing.assert_allclose(got['costs'], want['costs'], rtol=1e-8)
+    np.testing.assert_array_equal(got['n_iters'], max_iterations)
+    np.testing.assert_array_equal(want['n_iters'], max_iterations)
+    assert got['best_index'] == want['best_index']
+    np.testing.assert_allclose(got['alpha'].numpy(),
+                               np.asarray(want['alpha']), rtol=0, atol=1e-8)
+    alpha = got['alpha'].numpy()
+    assert np.all(np.abs(alpha - 1.0) <= 0.1 + 1e-12)
+    # The dictionary is diag(alpha) C, C row-stochastic.
+    np.testing.assert_allclose(
+        (got['dictionary'] / got['alpha'][:, None]).sum(dim=1).numpy(), 1.0,
+        atol=1e-12)
+    np.testing.assert_allclose(got['archetypes'].numpy(),
+                               np.asarray(want['archetypes']), atol=1e-6)
+    assert sorted(attrs) == sorted(want_attrs)
+    for key in ('training_set_cost', 'training_set_rmse'):
+        assert float(attrs[key]) == pytest.approx(float(want_attrs[key]),
+                                                  rel=1e-8)
+    assert attrs['delta'] == want_attrs['delta']
+    assert attrs['test_set_size'] == want_attrs['test_set_size'] == '0'
 
 
 def _planted(seed, n=40, d=8, k=3):

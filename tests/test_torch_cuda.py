@@ -199,6 +199,27 @@ def test_fit_on_card_matches_cpu(cuda):
                                   res["cpu"]["n_iters"])
 
 
+def test_scale_relaxed_fit_on_card_matches_cpu(cuda):
+    """The small float64 fit with scale factors (delta = 0.1) from the
+    same states on the card (K1) and on the CPU (its plain version), as
+    chip_smoke.py phase 25 holds it: costs within 1e-6 relative, the
+    winner's alpha within 1e-6 and inside its box, K1 launched on the
+    card."""
+    before = simplex_qp.LAUNCHES
+    res = {dev: aa_fit_restarts(
+        torch.as_tensor(_planted(0, 300, 40, 6, 0.01), device=dev), 6,
+        torch.Generator().manual_seed(0), 8, delta=0.1, **_SMALL_FIT)
+        for dev in (cuda, "cpu")}
+    assert simplex_qp.LAUNCHES > before
+    np.testing.assert_allclose(res[cuda]["costs"], res["cpu"]["costs"],
+                               rtol=1e-6)
+    alpha = res[cuda]["alpha"].cpu()
+    np.testing.assert_allclose(alpha.numpy(), res["cpu"]["alpha"].numpy(),
+                               rtol=0, atol=1e-6)
+    assert float(alpha.min()) >= 0.9 and float(alpha.max()) <= 1.1
+    assert not torch.allclose(alpha, torch.ones_like(alpha))
+
+
 def test_small_fit_is_the_same_bits_every_run(cuda):
     """The card-against-CPU fit gives the same bits run after run on
     each device, and on the CPU whatever its thread count: equal

@@ -4,8 +4,9 @@ A fresh interpreter with ``sys.modules['jax'] = None`` (any ``import
 jax`` then raises) imports ``convex_dim_red_tpu_torch`` and runs tiny
 CPU fits through the public entry points (AA, screened and padded,
 kernel AA, PCA, GPNH, k-means and its gap statistic, the sweeps, a
-checkpoint, the k-means analysis and a driver's ``main``), as on a
-machine with no JAX.
+checkpoint, the k-means analysis, drivers' ``main``s with a
+scale-relaxed AA, and the synthetic generators), and imports the
+examples, as on a machine with no JAX.
 """
 
 import os
@@ -94,6 +95,28 @@ _SCRIPT = textwrap.dedent("""
                   '--platform', 'cpu'])
     assert open_dataset(os.path.join(tmp, 'out.nc'))['EOFs'].data.shape \
         == (2, 3, 4)
+    # The synthetic generators, a PCA and a scale-relaxed AA driver on
+    # their JRA-55 files, and the examples' modules.
+    from convex_dim_red_tpu_torch.pipelines import synthetic
+    grid, eofs, pcs_file = (os.path.join(tmp, name) for name in
+                            ('grid.nc', 'eofs.nc', 'pcs.nc'))
+    synthetic.synthetic_jra55(n_years=3, n_lat=9, n_lon=8).to_netcdf(grid)
+    assert synthetic.synthetic_hadisst(n_years=1, n_lat=6, n_lon=8)[
+        'sst'].data.shape == (12, 6, 8)
+    drivers.main(['jra55_pca', grid, eofs, '--n-components', '3',
+                  '--platform', 'cpu'])
+    synthetic.synthetic_jra55('pcs', n_years=3, n_modes=4).to_netcdf(
+        pcs_file)
+    drivers.main(['jra55_pca_aa', pcs_file, os.path.join(tmp, 'aa.nc'),
+                  '--n-components', '2', '--delta', '0.1', '--n-init', '2',
+                  '--max-iterations', '5', '--random-seed', '0',
+                  '--platform', 'cpu'])
+    assert float(open_dataset(os.path.join(tmp, 'aa.nc')).attrs['delta']) \
+        == 0.1
+    from convex_dim_red_tpu_torch.examples import (
+        _common, distributed_scaling, hadisst_case_study, jra55_case_study)
+    assert _common.parse_args('x', [os.path.join(tmp, 'ex'), '--platform',
+                                    'cpu']).device == 'cpu'
     # The blocked names stay None; the JAX package is never imported.
     loaded = [m for m, mod in sys.modules.items() if mod is not None
               and m.split('.')[0] in ('jax', 'jaxlib',

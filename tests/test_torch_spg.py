@@ -92,6 +92,39 @@ def test_scale_subproblem_matches_vmapped_jax(alpha0):
     assert got.min() >= lo and got.max() <= hi
 
 
+@pytest.mark.parametrize("check_every", [1, 3, 8])
+def test_reading_the_stop_more_often_moves_no_result(check_every):
+    """``check_every`` sets how often the host reads whether every
+    problem is done: the result is the same, and the loop leaves at the
+    first read after the last problem stopped.  A box problem whose
+    unconstrained minimiser lies beyond the box stops after one step."""
+    p = _subproblems(3)
+    M = _t(p['M'])
+    lo, hi = 1 - p['delta'], 1 + p['delta']
+    steps = []
+
+    def solve(B, every):
+        calls = [0]
+
+        def matvec(v):
+            calls[0] += 1
+            return (M @ v[:, :, None])[:, :, 0] / p['n']
+
+        out = t_quad_spg(matvec, B, _t(p['alpha']),
+                         lambda v: torch.clamp(v, lo, hi),
+                         max_iterations=200, check_every=every)
+        steps.append(calls[0] - 1)  # one matvec before the loop
+        return out
+
+    for B in (_t(p['B_scale']), _t(p['B_scale']) + 1e3):
+        want = solve(B, 200).numpy()  # no read: every step runs
+        got = solve(B, check_every).numpy()
+        np.testing.assert_array_equal(got, want)
+    # The pushed problem sits on its upper bound after the first step.
+    np.testing.assert_array_equal(got, hi)
+    assert steps[1] >= steps[3] and steps[3] == check_every
+
+
 def test_finished_restarts_stay_frozen():
     # A restart that converged is not moved by the iterations the
     # others still need: solving it alone gives the same answer.
