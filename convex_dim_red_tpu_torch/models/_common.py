@@ -15,6 +15,8 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
+from ..utils.profiling import host_read
+
 __all__ = [
     "QPSolverConfig",
     "SPGSolverConfig",
@@ -238,8 +240,8 @@ def _run_fit(core, state, max_iterations, verbose, title, rule):
     max_iterations = int(max_iterations)
     if not verbose:
         state, cost, n_iter, trace, inc, _ = core(state, max_iterations)
-        return (state, cost, n_iter, trace[:n_iter].cpu().numpy(),
-                inc.cpu().numpy())
+        return (state, cost, n_iter, host_read(trace[:n_iter]).numpy(),
+                host_read(inc).numpy())
 
     print(title)
     print('{:<12s} | {:<13s} | {:<13s} | {:<12s}'.format(
@@ -255,21 +257,21 @@ def _run_fit(core, state, max_iterations, verbose, title, rule):
         t0 = time.perf_counter()
         state, cost, n_it, trace, inc, stop = core(state, this_chunk)
         dt = time.perf_counter() - t0
-        deltas = trace[:n_it].cpu().numpy()
+        deltas = host_read(trace[:n_it]).numpy()
         # Cost after in-chunk iteration i: the chunk's final cost minus
         # the deltas still to come.
         suffix = np.cumsum(deltas[::-1])[::-1]
-        costs = float(cost) - suffix + deltas
+        costs = float(host_read(cost)) - suffix + deltas
         for i in range(n_it):
             print(row.format(n_iter + i + 1, costs[i], deltas[i], dt / n_it))
         deltas_parts.append(deltas)
-        inc = inc.cpu().numpy()
+        inc = host_read(inc).numpy()
         inc_flags = inc if inc_flags is None else inc_flags | inc
         n_iter += n_it
     if inc_flags is None:
         # max_iterations == 0: the initial cost, as the quiet path.
         state, cost, _, _, inc, _ = core(state, 0)
-        inc_flags = inc.cpu().numpy()
+        inc_flags = host_read(inc).numpy()
     cost_deltas = (np.concatenate(deltas_parts) if deltas_parts
                    else np.zeros((0,)))
     if stop and not inc_flags.any():

@@ -53,6 +53,7 @@ from ..ops.stochastic_matrices import right_stochastic_matrix
 from ..solvers.spg import (quad_simplex_spg_batch, quad_spg,
                            resolve_qp_backend)
 from ..utils.precision import apply_matmul_precision, matmul_precision_scope
+from ..utils.profiling import host_read, span, to_device
 from ..utils.validation import (as_input, check_array_shape,
                                 check_stochastic_matrix)
 from ._common import (QPSolverConfig, SPGSolverConfig, make_config,
@@ -259,7 +260,7 @@ def _kernel_aa_core(K, Z, C, alpha, delta, tolerance, X,
         if require_monotonic:
             stop_flag = stop_flag | torch.any(inc_flags)
         n_iter += 1
-        stop = bool(stop_flag)
+        stop = bool(host_read(stop_flag))
 
     return Z, C, alpha, new_cost, n_iter, cost_trace, inc_flags, stop
 
@@ -390,8 +391,9 @@ def initialize_kernel_aa_scale_factors(n_components, delta=0,
                                        generator=None,
                                        dtype=torch.float64, device=None):
     if delta != 0:
-        u = torch.rand((n_components,), generator=generator, dtype=dtype,
-                       device=generator.device).to(device)
+        u = to_device(torch.rand((n_components,), generator=generator,
+                                 dtype=dtype, device=generator.device),
+                      device)
         return (1 - delta) + 2 * delta * u
     return torch.ones((n_components,), dtype=dtype, device=device)
 
@@ -575,11 +577,18 @@ class KernelAA:
 
     def fit_transform(self, data, dictionary=None, weights=None, alpha=None,
                       _data_matrix=None, **kwargs):
-        """Fit kernel AA to ``data`` (a kernel matrix) and return weights."""
+        """Fit kernel AA to ``data`` (a kernel matrix) and return weights
+        (the span ``cdr.fit``)."""
+        with span("cdr.fit"):
+            return self._fit_transform(data, dictionary, weights, alpha,
+                                       _data_matrix, **kwargs)
+
+    def _fit_transform(self, data, dictionary=None, weights=None,
+                       alpha=None, _data_matrix=None, **kwargs):
         cost, n_iter, avg_time, cost_deltas = self._kernel_aa(
             data, dictionary=dictionary, weights=weights, alpha=alpha,
             data=_data_matrix, **kwargs)
-        self.cost = float(cost)
+        self.cost = float(host_read(cost))
         self.n_iter = n_iter
         self.avg_time_per_iter = avg_time
         self.cost_deltas = cost_deltas
@@ -632,7 +641,14 @@ class ArchetypalAnalysis:
 
     def fit_transform(self, data, dictionary=None, weights=None, alpha=None,
                       **kwargs):
-        """Fit AA to ``data`` with shape (n_samples, n_features)."""
+        """Fit AA to ``data`` with shape (n_samples, n_features) (the span
+        ``cdr.fit``)."""
+        with span("cdr.fit"):
+            return self._fit_transform(data, dictionary, weights, alpha,
+                                       **kwargs)
+
+    def _fit_transform(self, data, dictionary=None, weights=None,
+                       alpha=None, **kwargs):
         data = as_input(data, _fit_device(self.mesh, self.device))
         if self.n_components is None:
             # Reference quirk kept for parity: data-space AA defaults to
@@ -653,7 +669,7 @@ class ArchetypalAnalysis:
         with matmul_precision_scope():
             kernel = data @ data.T
 
-        self._kernel_model.fit_transform(
+        self._kernel_model._fit_transform(
             kernel, dictionary=dictionary, weights=weights, alpha=alpha,
             _data_matrix=data, **kwargs)
 
@@ -737,8 +753,19 @@ class ArchetypalAnalysis:
         ``max_iterations`` as in the reference.  With ``mesh`` each rank
         solves its block of the rows when they divide over the sample
         axis (and the restart axis has size 1), else the whole batch, as
-        the JAX estimator falls back.  Returns ``(weights, cost)``."""
-        data = as_input(data, _fit_device(self.mesh, self.device))
+        the JAX estimator falls back.  Returns ``(weights, cost)``.
+
+        One call is the span ``cdr.transform``, its stages the spans
+        ``cdr.transform.input`` (the data to the device),
+        ``cdr.transform.init`` (the initial weights),
+        ``cdr.transform.weights`` (the QPs) and ``cdr.transform.cost``
+        (the residual and its read on the host)."""
+        with span("cdr.transform"):
+            return self._transform(data)
+
+    def _transform(self, data):
+        with span("cdr.transform.input"):
+            data = as_input(data, _fit_device(self.mesh, self.device))
         n_samples = data.shape[0]
 
         cfg = make_config(QPSolverConfig, dict(
@@ -748,9 +775,11 @@ class ArchetypalAnalysis:
         cfg_kwargs['max_iterations'] = int(self.max_iterations)
 
         archetypes = self.archetypes.to(data.device, data.dtype)
-        Z0 = right_stochastic_matrix(
-            self._kernel_model._generator, (n_samples, self.n_components),
-            dtype=data.dtype, device=data.device)
+        with span("cdr.transform.init"):
+            Z0 = right_stochastic_matrix(
+                self._kernel_model._generator,
+                (n_samples, self.n_components), dtype=data.dtype,
+                device=data.device)
 
         if self.mesh is not None:
             from ..parallel.mesh import ensure_mesh_axes
@@ -761,13 +790,16 @@ class ArchetypalAnalysis:
                 return self._transform_sharded(data, archetypes, Z0,
                                                cfg_kwargs)
 
-        with matmul_precision_scope():
+        with span("cdr.transform.weights"), matmul_precision_scope():
             A = archetypes @ archetypes.T
             B = -(data @ archetypes.T)
             weights = quad_simplex_spg_batch(A, B, Z0, **cfg_kwargs)
             self.weights = weights
-            resid = data - weights @ archetypes
-        cost = 0.5 * float(torch.sum(resid * resid)) / n_samples
+        with span("cdr.transform.cost"):
+            with matmul_precision_scope():
+                resid = data - weights @ archetypes
+            cost = 0.5 * float(host_read(torch.sum(resid * resid))) \
+                / n_samples
         return weights, cost
 
     def _transform_sharded(self, data, archetypes, Z0, cfg_kwargs):
@@ -790,7 +822,7 @@ class ArchetypalAnalysis:
             resid = data[rows] - W_loc @ archetypes
         ss = _psum(torch.sum(resid * resid), mesh, 'samples')
         self.weights = _all_gather(W_loc, mesh, 'samples')
-        return self.weights, 0.5 * float(ss) / n_samples
+        return self.weights, 0.5 * float(host_read(ss)) / n_samples
 
     def inverse_transform(self, weights):
         """Map weights back to data space: ``Z @ archetypes`` (an array

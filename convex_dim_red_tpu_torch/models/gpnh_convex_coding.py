@@ -38,6 +38,7 @@ from ..ops.furthest_sum import dissimilarities_from_kernel, furthest_sum
 from ..ops.stochastic_matrices import right_stochastic_matrix
 from ..solvers.spg import quad_simplex_spg_batch, resolve_qp_backend
 from ..utils.precision import apply_matmul_precision, matmul_precision_scope
+from ..utils.profiling import host_read, span
 from ..utils.validation import (as_input, check_array_shape,
                                 check_unit_axis_sums)
 from ._common import (QPSolverConfig, make_config, STOPPING_CRITERIA,
@@ -264,7 +265,7 @@ def _gpnh_core(X, Z, W, lambda_W, tolerance, *, do_dict, do_weights,
         if require_monotonic:
             stop_flag = stop_flag | torch.any(inc_flags)
         n_iter += 1
-        stop = bool(stop_flag)
+        stop = bool(host_read(stop_flag))
 
     return Z, W, new_cost, n_iter, cost_trace, inc_flags, stop
 
@@ -508,10 +509,12 @@ class GPNHConvexCoding:
                 res['cost_deltas'][:n_iter])
 
     def fit_transform(self, data, dictionary=None, weights=None, **kwargs):
-        """Fit to ``data`` (n_samples, n_features); return the weights."""
-        cost, n_iter, avg_time, cost_deltas = self._gpnh_convex_coding(
-            data, dictionary=dictionary, weights=weights, **kwargs)
-        self.cost = float(cost)
+        """Fit to ``data`` (n_samples, n_features); return the weights
+        (the span ``cdr.fit``)."""
+        with span("cdr.fit"):
+            cost, n_iter, avg_time, cost_deltas = self._gpnh_convex_coding(
+                data, dictionary=dictionary, weights=weights, **kwargs)
+        self.cost = float(host_read(cost))
         self.n_iter = n_iter
         self.avg_time_per_iter = avg_time
         self.cost_deltas = cost_deltas
@@ -530,7 +533,7 @@ class GPNHConvexCoding:
         cost, _, _, _ = self._gpnh_convex_coding(
             data, dictionary=self.dictionary,
             update_dictionary=False, update_weights=True)
-        return self.weights, float(cost)
+        return self.weights, float(host_read(cost))
 
     def inverse_transform(self, weights):
         """Map weights back to data space: ``Z @ W'`` (an array goes to

@@ -55,6 +55,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils.profiling import host_read
+
 __all__ = [
     "MAX_K",
     "UNPACKED_MAX_K",
@@ -274,6 +276,8 @@ def _check(As, Bs, X0s, mask, projection, max_k):
     if mask is None:
         mask = torch.ones((k,), dtype=torch.bool)
     else:
+        if isinstance(mask, torch.Tensor) and mask.device.type != "cpu":
+            mask = host_read(mask.detach())
         mask = torch.as_tensor(mask).detach().to("cpu", torch.bool)
         if mask.shape != (k,):
             raise ValueError("mask must have shape (%d,), got %s"

@@ -7,6 +7,8 @@ distribution only; the two generators draw different numbers.
 
 import torch
 
+from ..utils.profiling import to_device
+
 __all__ = [
     "uniform_stochastic_matrix",
     "left_stochastic_matrix",
@@ -23,7 +25,7 @@ def uniform_stochastic_matrix(generator, shape, axis=0,
     m = torch.rand(shape, generator=generator, dtype=dtype,
                    device=generator.device)
     if device is not None:
-        m = m.to(device)
+        m = to_device(m, device)
     return m / m.sum(dim=axis, keepdim=True)
 
 

@@ -55,7 +55,9 @@ from ..ops.furthest_sum import (dissimilarities_from_kernel,
                                 furthest_sum_device)
 from ..ops.stochastic_matrices import right_stochastic_matrix
 from ..solvers.spg import resolve_qp_backend
+from ..utils import profiling
 from ..utils.precision import apply_matmul_precision
+from ..utils.profiling import host_read, span, to_device
 from ..utils.validation import as_input
 from .mesh import (_all_gather, _axis, _broadcast, mesh_device,
                    require_device_mesh)
@@ -110,7 +112,7 @@ class _RestartGroups:
         t = torch.full((R_loc,), fill, dtype=torch.float64,
                        device=self.device)
         t[:len(values)] = torch.as_tensor(np.asarray(values, np.float64))
-        return _all_gather(t, self.mesh, self.axis).cpu().numpy()[:R]
+        return host_read(_all_gather(t, self.mesh, self.axis)).numpy()[:R]
 
     def gather_states(self, states, R_loc, R):
         """Every group's block of each state tensor, in global order."""
@@ -144,8 +146,8 @@ def _masked_uniform_weights(generator, shape, component_mask, dtype,
                             device):
     """Row-stochastic weights of a padded fit: uniform draws times the
     mask, normalised per row, so the padded columns start at 0."""
-    u = torch.rand(shape, generator=generator, dtype=dtype,
-                   device=generator.device).to(device)
+    u = to_device(torch.rand(shape, generator=generator, dtype=dtype,
+                             device=generator.device), device)
     u = u * component_mask.to(device, dtype)
     return u / u.sum(dim=-1, keepdim=True)
 
@@ -164,9 +166,9 @@ def _init_aa_state(generator, n_init, delta, *, n_samples, n_components,
     FurthestSum picks ``k`` samples, the padded count.  Matches the JAX
     package's ``_init_aa_state`` in distribution."""
     if init == 'furthest_sum':
-        starts = torch.randint(0, n_samples, (n_init,),
-                               generator=generator,
-                               device=generator.device).to(device)
+        starts = to_device(torch.randint(0, n_samples, (n_init,),
+                                         generator=generator,
+                                         device=generator.device), device)
         selected = furthest_sum_device(diss, n_components, starts,
                                        extra_steps=n_extra_steps)
         C = torch.nn.functional.one_hot(selected, n_samples).to(dtype)
@@ -182,8 +184,9 @@ def _init_aa_state(generator, n_init, delta, *, n_samples, n_components,
         Z = _masked_uniform_weights(generator, shape, component_mask,
                                     dtype, device)
     if do_scale:
-        u = torch.rand((n_init, n_components), generator=generator,
-                       dtype=dtype, device=generator.device).to(device)
+        u = to_device(torch.rand((n_init, n_components),
+                                 generator=generator, dtype=dtype,
+                                 device=generator.device), device)
         alpha = (1.0 - delta) + 2.0 * delta * u
     else:
         alpha = torch.ones((n_init, n_components), dtype=dtype,
@@ -272,8 +275,10 @@ def _compacted_best(R, states_all, *, max_iterations, restart_chunk,
     ``round_call(states_all, idx, M) -> (states_all, costs, trace,
     n_iters, done)`` runs one round of ``M`` iterations on the chunk
     ``idx`` (a device tensor; :func:`_round_run`).  All chunks of a
-    round are queued before any result is read; the host then reads
-    each chunk's scalars once.
+    round are queued before any result is read, each in the span
+    ``cdr.restarts.round``; the host then reads each chunk's scalars
+    once, in the span ``cdr.restarts.read``, and adds the iterations
+    of its distinct restarts to ``profiling.RESTART_ADVANCES``.
 
     Returns ``(states_all, costs, n_iters, traces, best)`` with ``best``
     the argmin-cost restart and ``traces[i]`` restart ``i``'s list of
@@ -296,19 +301,22 @@ def _compacted_best(R, states_all, *, max_iterations, restart_chunk,
             # Tile the tail so every chunk has the same width; duplicate
             # rows recompute the same trajectory and are skipped below.
             idx_np = np.resize(np.asarray(pending[w:w + chunk]), chunk)
-            idx = torch.as_tensor(idx_np, device=device)
-            states_all, *out = round_call(states_all, idx, M_round)
+            with span("cdr.restarts.round"):
+                idx = to_device(idx_np, device)
+                states_all, *out = round_call(states_all, idx, M_round)
             outs.append((idx_np, out))
 
         next_pending = []
         for idx_np, out in outs:
-            cs, tr, ni, done = (t.cpu().numpy() for t in out)
+            with span("cdr.restarts.read"):
+                cs, tr, ni, done = (host_read(t).numpy() for t in out)
             seen = set()
             for j, i in enumerate(idx_np):
                 if i in seen:
                     continue
                 seen.add(i)
                 n_iters[i] += ni[j]
+                profiling.RESTART_ADVANCES += int(ni[j])
                 traces[i].append(tr[j, :ni[j]])
                 if done[j] or used + M_round >= max_iterations:
                     costs[i] = cs[j]
@@ -371,8 +379,8 @@ def _group_best_of_compacted(states, round_call, groups, **schedule):
             torch.zeros((n_iter,), dtype=torch.float64,
                         device=groups.device)]
     parts = groups.broadcast(parts, owner)
-    best_tuple = (*parts[:-1], parts[-1].cpu().numpy(), float(costs[best]),
-                  n_iter)
+    best_tuple = (*parts[:-1], host_read(parts[-1]).numpy(),
+                  float(costs[best]), n_iter)
     return best_tuple, costs, n_iters
 
 
@@ -748,24 +756,27 @@ def aa_fit_restarts(data, n_components, generator, n_init, delta=0.0,
         raise ValueError("init must be 'random' or 'furthest_sum', got %r"
                          % (init,))
 
-    X = as_input(data, _fit_device(mesh, device))
-    # The Gram, once per fit: every round and chunk takes it.
-    gram = _gram_once(X)
-    Z, C, alpha, out = _aa_restarts(
-        X, gram, n_components, generator, n_init, has_data=True,
-        delta=delta, init=init, tolerance=tolerance,
-        max_iterations=max_iterations, n_extra_steps=n_extra_steps,
-        stopping_criterion=stopping_criterion,
-        dictionary_solver_kwargs=dictionary_solver_kwargs,
-        weights_solver_kwargs=weights_solver_kwargs,
-        scale_factors_solver_kwargs=scale_factors_solver_kwargs,
-        restart_chunk=restart_chunk, pad_components_to=pad_components_to,
-        screen_iterations=screen_iterations, screen_keep=screen_keep,
-        screen_margin=screen_margin, compact_iterations=compact_iterations,
-        mesh=mesh, restart_axis=restart_axis)
-    dictionary = alpha[:, None] * C if float(delta) != 0.0 else C
-    return dict(weights=Z, dictionary=dictionary, alpha=alpha,
-                archetypes=dictionary @ X, **out)
+    with span("cdr.fit"):
+        X = as_input(data, _fit_device(mesh, device))
+        # The Gram, once per fit: every round and chunk takes it.
+        gram = _gram_once(X)
+        Z, C, alpha, out = _aa_restarts(
+            X, gram, n_components, generator, n_init, has_data=True,
+            delta=delta, init=init, tolerance=tolerance,
+            max_iterations=max_iterations, n_extra_steps=n_extra_steps,
+            stopping_criterion=stopping_criterion,
+            dictionary_solver_kwargs=dictionary_solver_kwargs,
+            weights_solver_kwargs=weights_solver_kwargs,
+            scale_factors_solver_kwargs=scale_factors_solver_kwargs,
+            restart_chunk=restart_chunk,
+            pad_components_to=pad_components_to,
+            screen_iterations=screen_iterations, screen_keep=screen_keep,
+            screen_margin=screen_margin,
+            compact_iterations=compact_iterations, mesh=mesh,
+            restart_axis=restart_axis)
+        dictionary = alpha[:, None] * C if float(delta) != 0.0 else C
+        return dict(weights=Z, dictionary=dictionary, alpha=alpha,
+                    archetypes=dictionary @ X, **out)
 
 
 @apply_matmul_precision
@@ -803,23 +814,26 @@ def kernel_aa_fit_restarts(kernel, n_components, generator, n_init,
         raise ValueError("init must be 'random' or 'furthest_sum', got %r"
                          % (init,))
 
-    K = as_input(kernel, _fit_device(mesh, device))
-    if K.ndim != 2 or K.shape[0] != K.shape[1]:
-        raise ValueError("expected a square kernel matrix, got shape %s"
-                         % (tuple(K.shape),))
-    Z, C, alpha, out = _aa_restarts(
-        K, K, n_components, generator, n_init, has_data=False,
-        delta=delta, init=init, tolerance=tolerance,
-        max_iterations=max_iterations, n_extra_steps=n_extra_steps,
-        stopping_criterion=stopping_criterion,
-        dictionary_solver_kwargs=dictionary_solver_kwargs,
-        weights_solver_kwargs=weights_solver_kwargs,
-        scale_factors_solver_kwargs=scale_factors_solver_kwargs,
-        restart_chunk=restart_chunk, pad_components_to=pad_components_to,
-        screen_iterations=screen_iterations, screen_keep=screen_keep,
-        screen_margin=screen_margin, compact_iterations=compact_iterations,
-        mesh=mesh, restart_axis=restart_axis)
-    return dict(weights=Z, dictionary=C, alpha=alpha, **out)
+    with span("cdr.fit"):
+        K = as_input(kernel, _fit_device(mesh, device))
+        if K.ndim != 2 or K.shape[0] != K.shape[1]:
+            raise ValueError("expected a square kernel matrix, got shape "
+                             "%s" % (tuple(K.shape),))
+        Z, C, alpha, out = _aa_restarts(
+            K, K, n_components, generator, n_init, has_data=False,
+            delta=delta, init=init, tolerance=tolerance,
+            max_iterations=max_iterations, n_extra_steps=n_extra_steps,
+            stopping_criterion=stopping_criterion,
+            dictionary_solver_kwargs=dictionary_solver_kwargs,
+            weights_solver_kwargs=weights_solver_kwargs,
+            scale_factors_solver_kwargs=scale_factors_solver_kwargs,
+            restart_chunk=restart_chunk,
+            pad_components_to=pad_components_to,
+            screen_iterations=screen_iterations, screen_keep=screen_keep,
+            screen_margin=screen_margin,
+            compact_iterations=compact_iterations, mesh=mesh,
+            restart_axis=restart_axis)
+        return dict(weights=Z, dictionary=C, alpha=alpha, **out)
 
 
 # ---------------------------------------------------------------------------
@@ -845,9 +859,10 @@ def _init_gpnh_state(generator, X, diss, n_init, *, n_components, init,
     n_samples, n_features = X.shape
     dtype = X.dtype
     if init == 'furthest_sum':
-        starts = torch.randint(0, n_samples, (n_init,),
-                               generator=generator,
-                               device=generator.device).to(X.device)
+        starts = to_device(torch.randint(0, n_samples, (n_init,),
+                                         generator=generator,
+                                         device=generator.device),
+                           X.device)
         selected = furthest_sum_device(diss, n_components, starts,
                                        extra_steps=n_extra_steps)
         W = X[selected].transpose(1, 2).contiguous()
@@ -855,9 +870,9 @@ def _init_gpnh_state(generator, X, diss, n_init, *, n_components, init,
         k_act = (n_components if component_mask is None
                  else int(component_mask.sum()))
         avg = torch.sqrt(torch.mean(torch.abs(X)) / k_act)
-        W = avg * torch.randn((n_init, n_features, n_components),
-                              generator=generator, dtype=dtype,
-                              device=generator.device).to(X.device)
+        W = avg * to_device(torch.randn((n_init, n_features, n_components),
+                                        generator=generator, dtype=dtype,
+                                        device=generator.device), X.device)
     shape = (n_init, n_samples, n_components)
     if component_mask is None:
         Z = right_stochastic_matrix(generator, shape, dtype=dtype,
@@ -977,49 +992,50 @@ def gpnh_fit_restarts(data, n_components, generator, n_init, lambda_W=0.0,
             "gpnh_fit_restarts supports init='random' or "
             "'furthest_sum' (the reference drivers' choices)")
 
-    X = as_input(data, _fit_device(mesh, device))
-    generator = _generator_on(generator, X.device, mesh=mesh)
-    k_out = int(n_components)
-    k_fit, component_mask = _padded_components(k_out, pad_components_to)
-    weights_cfg = make_config(QPSolverConfig, weights_solver_kwargs)
+    with span("cdr.fit"):
+        X = as_input(data, _fit_device(mesh, device))
+        generator = _generator_on(generator, X.device, mesh=mesh)
+        k_out = int(n_components)
+        k_fit, component_mask = _padded_components(k_out, pad_components_to)
+        weights_cfg = make_config(QPSolverConfig, weights_solver_kwargs)
 
-    diss = (dissimilarities_from_kernel(_gram_once(X))
-            if init == 'furthest_sum' else None)
-    states = _init_gpnh_state(generator, X, diss, int(n_init),
-                              n_components=k_fit, init=init,
-                              n_extra_steps=int(n_extra_steps),
-                              component_mask=component_mask)
-    statics = dict(max_iterations=int(max_iterations),
-                   criterion=stopping_criterion, weights_cfg=weights_cfg,
-                   n_components=k_fit)
-    grouped_backend = resolve_qp_backend(weights_cfg.backend, k=k_fit,
-                                         regime='sharded_fit',
-                                         device=X.device)
-    common = dict(statics=statics, grouped_backend=grouped_backend,
-                  restart_chunk=restart_chunk,
-                  component_mask=component_mask,
-                  groups=_restart_groups(mesh, restart_axis))
-    args = (X, states, float(lambda_W), float(tolerance))
-    best, costs, n_iters, screen = _schedule(
-        lambda **kw: _compacted_gpnh_best(*args, **common, **kw),
-        lambda **kw: _screened_gpnh_best(*args, **common, **kw),
-        compact_iterations=compact_iterations,
-        screen_iterations=screen_iterations, screen_keep=screen_keep,
-        screen_margin=screen_margin)
+        diss = (dissimilarities_from_kernel(_gram_once(X))
+                if init == 'furthest_sum' else None)
+        states = _init_gpnh_state(generator, X, diss, int(n_init),
+                                  n_components=k_fit, init=init,
+                                  n_extra_steps=int(n_extra_steps),
+                                  component_mask=component_mask)
+        statics = dict(max_iterations=int(max_iterations),
+                       criterion=stopping_criterion, weights_cfg=weights_cfg,
+                       n_components=k_fit)
+        grouped_backend = resolve_qp_backend(weights_cfg.backend, k=k_fit,
+                                             regime='sharded_fit',
+                                             device=X.device)
+        common = dict(statics=statics, grouped_backend=grouped_backend,
+                      restart_chunk=restart_chunk,
+                      component_mask=component_mask,
+                      groups=_restart_groups(mesh, restart_axis))
+        args = (X, states, float(lambda_W), float(tolerance))
+        best, costs, n_iters, screen = _schedule(
+            lambda **kw: _compacted_gpnh_best(*args, **common, **kw),
+            lambda **kw: _screened_gpnh_best(*args, **common, **kw),
+            compact_iterations=compact_iterations,
+            screen_iterations=screen_iterations, screen_keep=screen_keep,
+            screen_margin=screen_margin)
 
-    Z, W, trace, best_cost, n_iter_best = best
-    if component_mask is not None:
-        Z, W = Z[:, :k_out], W[:, :k_out]
-    out = {
-        'weights': Z,
-        'dictionary': W,
-        'cost': best_cost,
-        'n_iter': n_iter_best,
-        'cost_deltas': np.asarray(trace)[:n_iter_best],
-        'costs': costs,
-        'n_iters': n_iters,
-        'best_index': int(np.argmin(costs)),
-    }
-    if screen is not None:
-        out['screen'] = screen
-    return out
+        Z, W, trace, best_cost, n_iter_best = best
+        if component_mask is not None:
+            Z, W = Z[:, :k_out], W[:, :k_out]
+        out = {
+            'weights': Z,
+            'dictionary': W,
+            'cost': best_cost,
+            'n_iter': n_iter_best,
+            'cost_deltas': np.asarray(trace)[:n_iter_best],
+            'costs': costs,
+            'n_iters': n_iters,
+            'best_index': int(np.argmin(costs)),
+        }
+        if screen is not None:
+            out['screen'] = screen
+        return out

@@ -45,7 +45,9 @@ from ..models.gpnh_convex_coding import (
 from ..ops.simplex_projection import simplex_project_rows
 from ..solvers.spg import (quad_simplex_spg_batch_grouped, quad_spg,
                            resolve_qp_backend)
+from ..utils import profiling
 from ..utils.precision import apply_matmul_precision
+from ..utils.profiling import host_read, span
 from ..utils.validation import as_input
 from .mesh import (_all_gather, _all_true, _axis, _block, _broadcast,
                    _psum, mesh_device)
@@ -77,6 +79,9 @@ def _keep_best_loop(states, cost0, iterate_batch, *, tolerance, criterion,
     the flag to the one a sharded fit's whole group takes) and leaves.
     A frozen restart does not change, so the outputs are the JAX
     loop's either way.
+
+    Each iteration is the span ``cdr.restarts.iteration`` and adds the
+    batch's width to ``profiling.RESTART_SLOTS``.
     """
     R = cost0.shape[0]
     device = cost0.device
@@ -88,21 +93,24 @@ def _keep_best_loop(states, cost0, iterate_batch, *, tolerance, criterion,
     cost = cost0
     for it in range(max_iterations):
         if check_every and it and it % check_every == 0:
-            stop = bool(done.all())
+            stop = bool(host_read(done.all()))
             if agree is not None:
                 stop = agree(stop)
             if stop:
                 break
-        out = iterate_batch(*states)
-        new_states, new_cost = tuple(out[:-1]), out[-1]
-        states = tuple(
-            torch.where(done.view((-1,) + (1,) * (n.ndim - 1)), o, n)
-            for o, n in zip(states, new_states))
-        new_cost = torch.where(done, cost, new_cost)
-        trace[:, it] = torch.where(done, 0.0, new_cost - cost)
-        n_iters += (~done).to(torch.int32)
-        done = done | has_converged(cost, new_cost, tolerance, criterion)
-        cost = new_cost
+        profiling.RESTART_SLOTS += R
+        with span("cdr.restarts.iteration"):
+            out = iterate_batch(*states)
+            new_states, new_cost = tuple(out[:-1]), out[-1]
+            states = tuple(
+                torch.where(done.view((-1,) + (1,) * (n.ndim - 1)), o, n)
+                for o, n in zip(states, new_states))
+            new_cost = torch.where(done, cost, new_cost)
+            trace[:, it] = torch.where(done, 0.0, new_cost - cost)
+            n_iters += (~done).to(torch.int32)
+            done = done | has_converged(cost, new_cost, tolerance,
+                                        criterion)
+            cost = new_cost
     return states, cost, trace, n_iters, done
 
 
@@ -201,7 +209,9 @@ def _aa_pre_weights(K_loc, Z_loc, C, alpha, *, delta, do_scale,
     k), ``C`` (R, k, n) and ``alpha`` (R, k) replicated within the
     sample group; the k-sized contractions all-reduced and the (n, k)
     blocks all-gathered.  Returns ``(C, alpha, A, B_w, CK, CKCt)``,
-    ``B_w`` (R, n_loc, k)."""
+    ``B_w`` (R, n_loc, k).  The spans ``cdr.aa.scale`` and
+    ``cdr.aa.dictionary`` hold the two steps; ``Z'Z`` and ``K Z``, which
+    both take, come before them."""
     n_samples = C.shape[-1]
     rows = sh.rows(n_samples)
 
@@ -211,31 +221,33 @@ def _aa_pre_weights(K_loc, Z_loc, C, alpha, *, delta, do_scale,
     ZtZ = sh.psum(Z_loc.transpose(1, 2) @ Z_loc)
     KZ_loc = K_loc @ sh.gather_rows(Z_loc, 1)             # (R, n_loc, k)
     if do_scale:
-        CK = sh.psum(cols(C) @ K_loc)                      # (R, k, n)
-        CKZ = sh.psum(cols(CK) @ Z_loc)
-        M = ZtZ * (CK @ C.transpose(1, 2))
+        with span("cdr.aa.scale"):
+            CK = sh.psum(cols(C) @ K_loc)                  # (R, k, n)
+            CKZ = sh.psum(cols(CK) @ Z_loc)
+            M = ZtZ * (CK @ C.transpose(1, 2))
 
-        def project(a):
-            return torch.clamp(a, 1.0 - delta, 1.0 + delta)
+            def project(a):
+                return torch.clamp(a, 1.0 - delta, 1.0 + delta)
 
-        alpha = quad_spg(
-            lambda a: (M @ a[:, :, None])[:, :, 0] / n_samples,
-            torch.diagonal(CKZ, dim1=1, dim2=2) / n_samples, alpha,
-            project, agree=sh.agree, check_every=_SCALE_CHECK_EVERY,
-            **scale_kwargs)
+            alpha = quad_spg(
+                lambda a: (M @ a[:, :, None])[:, :, 0] / n_samples,
+                torch.diagonal(CKZ, dim1=1, dim2=2) / n_samples, alpha,
+                project, agree=sh.agree, check_every=_SCALE_CHECK_EVERY,
+                **scale_kwargs)
 
-    KZD = sh.gather_rows(KZ_loc * alpha[:, None, :], 1)    # (R, n, k)
-    DZtZD = (alpha[:, :, None] * ZtZ) * alpha[:, None, :]
+    with span("cdr.aa.dictionary"):
+        KZD = sh.gather_rows(KZ_loc * alpha[:, None, :], 1)  # (R, n, k)
+        DZtZD = (alpha[:, :, None] * ZtZ) * alpha[:, None, :]
 
-    def matvec(Cm):
-        return DZtZD @ sh.psum(cols(Cm) @ K_loc) / n_samples
+        def matvec(Cm):
+            return DZtZD @ sh.psum(cols(Cm) @ K_loc) / n_samples
 
-    C = quad_spg(matvec, KZD.transpose(1, 2) / n_samples, C,
-                 simplex_project_rows, agree=sh.agree, **dict_kwargs)
-    CK = sh.psum(cols(C) @ K_loc)
-    CKCt = CK @ C.transpose(1, 2)
-    A = (alpha[:, :, None] * CKCt) * alpha[:, None, :]
-    B_w = -(alpha[:, :, None] * cols(CK)).transpose(1, 2)
+        C = quad_spg(matvec, KZD.transpose(1, 2) / n_samples, C,
+                     simplex_project_rows, agree=sh.agree, **dict_kwargs)
+        CK = sh.psum(cols(C) @ K_loc)
+        CKCt = CK @ C.transpose(1, 2)
+        A = (alpha[:, :, None] * CKCt) * alpha[:, None, :]
+        B_w = -(alpha[:, :, None] * cols(CK)).transpose(1, 2)
     return C, alpha, A, B_w, CK, CKCt
 
 
@@ -243,20 +255,21 @@ def _aa_iter_cost(X_loc, Z_loc, C, alpha, CK, CKCt, trace_K, sh):
     """The cost of each restart after its weights update: the residual
     form ``0.5 ||Z D C X - X||^2 / n`` when the data rows ``X_loc`` are
     given (reliable in float32), the kernel trace form from ``trace_K``
-    otherwise."""
+    otherwise.  The span ``cdr.aa.cost``."""
     n_samples = C.shape[-1]
     rows = sh.rows(n_samples)
-    if X_loc is not None:
-        CX = sh.psum(C[..., rows] @ X_loc)                 # (R, k, d)
-        resid = Z_loc @ (alpha[:, :, None] * CX)
-        # In place: the (R, n_loc, d) residual is the largest buffer of
-        # the fit.
-        resid -= X_loc
-        resid.square_()
-        return 0.5 * sh.psum(torch.sum(resid, dim=(1, 2))) / n_samples
-    CKZ = sh.psum(CK[..., rows] @ Z_loc)
-    ZtZ = sh.psum(Z_loc.transpose(1, 2) @ Z_loc)
-    return _cost_from_parts(trace_K, CKZ, ZtZ, CKCt, alpha, n_samples)
+    with span("cdr.aa.cost"):
+        if X_loc is not None:
+            CX = sh.psum(C[..., rows] @ X_loc)             # (R, k, d)
+            resid = Z_loc @ (alpha[:, :, None] * CX)
+            # In place: the (R, n_loc, d) residual is the largest buffer
+            # of the fit.
+            resid -= X_loc
+            resid.square_()
+            return 0.5 * sh.psum(torch.sum(resid, dim=(1, 2))) / n_samples
+        CKZ = sh.psum(CK[..., rows] @ Z_loc)
+        ZtZ = sh.psum(Z_loc.transpose(1, 2) @ Z_loc)
+        return _cost_from_parts(trace_K, CKZ, ZtZ, CKCt, alpha, n_samples)
 
 
 def _aa_iterate(X_loc, K_loc, *, delta, do_scale, dict_kwargs,
@@ -272,14 +285,16 @@ def _aa_iterate(X_loc, K_loc, *, delta, do_scale, dict_kwargs,
 
     Returns ``(iterate, cost0)``: ``iterate(Zs, Cs, alphas) -> (Zs, Cs,
     alphas, costs)`` for :func:`_keep_best_loop`, and ``cost0(Zs, Cs,
-    alphas)``, the costs of initial states."""
+    alphas)``, the costs of initial states.  The weights QPs are the span
+    ``cdr.aa.weights``."""
     def iterate(Zs, Cs, alphas):
         Cs, alphas, As, Bws, CKs, CKCts = _aa_pre_weights(
             K_loc, Zs, Cs, alphas, delta=delta, do_scale=do_scale,
             dict_kwargs=dict_kwargs, scale_kwargs=scale_kwargs, sh=sh)
-        Zs = quad_simplex_spg_batch_grouped(
-            As, Bws, Zs, backend=weights_backend, mask=component_mask,
-            **weights_kwargs)
+        with span("cdr.aa.weights"):
+            Zs = quad_simplex_spg_batch_grouped(
+                As, Bws, Zs, backend=weights_backend, mask=component_mask,
+                **weights_kwargs)
         costs = _aa_iter_cost(X_loc, Zs, Cs, alphas, CKs, CKCts, trace_K,
                               sh)
         return Zs, Cs, alphas, costs
@@ -312,7 +327,8 @@ def _gpnh_iterate(X_loc, *, lambda_W, weights_backend, weights_kwargs,
     the weights QP.
 
     Returns ``(iterate, cost0)``: ``iterate(Zs, Ws) -> (Zs, Ws, costs)``
-    and ``cost0(Zs, Ws)``.
+    and ``cost0(Zs, Ws)``.  The spans ``cdr.gpnh.dictionary``,
+    ``cdr.gpnh.weights`` and ``cdr.gpnh.cost`` hold the three steps.
     """
     n_loc, n_features = X_loc.shape
     n_samples = n_loc * sh.n_sample_shards
@@ -343,16 +359,20 @@ def _gpnh_iterate(X_loc, *, lambda_W, weights_backend, weights_kwargs,
         return Ws, Ws.transpose(1, 2) @ Ws, -(X_loc @ Ws)
 
     def cost_of(Zs, Ws, WtWs, XWs):
-        WtXtZ_tr = sh.psum(torch.sum(XWs.to(sdt) * Zs.to(sdt), dim=(1, 2)))
-        return _gpnh_cost_from_parts(
-            trace_XtX, WtXtZ_tr, sh.psum(Zs.transpose(1, 2) @ Zs), WtWs,
-            penalty(Ws), n_samples)
+        with span("cdr.gpnh.cost"):
+            WtXtZ_tr = sh.psum(torch.sum(XWs.to(sdt) * Zs.to(sdt),
+                                         dim=(1, 2)))
+            return _gpnh_cost_from_parts(
+                trace_XtX, WtXtZ_tr, sh.psum(Zs.transpose(1, 2) @ Zs),
+                WtWs, penalty(Ws), n_samples)
 
     def iterate(Zs, Ws):
-        Ws, WtWs, Bs = dict_update(Zs)
-        Zs = quad_simplex_spg_batch_grouped(
-            WtWs, Bs, Zs, backend=weights_backend, mask=component_mask,
-            **weights_kwargs)
+        with span("cdr.gpnh.dictionary"):
+            Ws, WtWs, Bs = dict_update(Zs)
+        with span("cdr.gpnh.weights"):
+            Zs = quad_simplex_spg_batch_grouped(
+                WtWs, Bs, Zs, backend=weights_backend, mask=component_mask,
+                **weights_kwargs)
         return Zs, Ws, cost_of(Zs, Ws, WtWs, -Bs)
 
     def cost0(Zs, Ws):
@@ -380,28 +400,33 @@ def _select_best(states, costs, trace, n_iters, *, n_valid, sh):
     idx = torch.arange(all_costs.shape[0], device=all_costs.device)
     masked = torch.where(idx < n_valid, all_costs,
                          torch.full_like(all_costs, float('inf')))
-    best = int(torch.argmin(masked))
+    best = int(host_read(torch.argmin(masked)))
     owner, local = divmod(best, R_loc)
 
     def pick(t):
         return _broadcast(t[local], mesh, axis, owner)
 
     best_states = tuple(pick(s) for s in states)
-    return (best_states, float(masked[best]), int(all_n_iters[best]),
-            pick(trace), all_costs, all_n_iters)
+    return (best_states, float(host_read(masked[best])),
+            int(host_read(all_n_iters[best])), pick(trace), all_costs,
+            all_n_iters)
 
 
-def _fit_outputs(Z_loc_best, sh, best, extra):
+def _fit_outputs(Z_loc_best, sh, best, extra, n_valid):
     """The result dict of a sharded fit: the winner's weights gathered
     over the samples, and the per-restart costs and iteration counts as
-    numpy arrays."""
+    numpy arrays.  The iterations of this rank's real restarts (global
+    index below ``n_valid``) go to ``profiling.RESTART_ADVANCES``."""
     _, cost, n_iter, trace, costs, n_iters = best
     out = {'weights': sh.gather_rows(Z_loc_best, 0)}
     out.update(extra)
     out.update(cost=cost, n_iter=n_iter,
-               cost_deltas=trace.cpu().numpy(),
-               costs=costs.cpu().numpy(),
-               n_iters=n_iters.cpu().numpy().astype(np.int64))
+               cost_deltas=host_read(trace).numpy(),
+               costs=host_read(costs).numpy(),
+               n_iters=host_read(n_iters).numpy().astype(np.int64))
+    mine = np.arange(len(out['n_iters']))[sh.restarts(len(out['n_iters']))]
+    profiling.RESTART_ADVANCES += int(
+        out['n_iters'][mine[mine < n_valid]].sum())
     return out
 
 
@@ -461,7 +486,7 @@ def _sharded_aa(mesh, data, Zs, Cs, alphas, *, has_data, delta, tolerance,
     Z, C, alpha = best[0]
     return _fit_outputs(Z, sh, best, {
         'dictionary': alpha[:, None] * C if do_scale else C,
-        'alpha': alpha})
+        'alpha': alpha}, n_valid)
 
 
 # ---------------------------------------------------------------------------
@@ -610,4 +635,4 @@ def sharded_gpnh_fit(mesh, X, Zs, Ws, *, lambda_W=0.0, tolerance=1e-6,
     best = _select_best(states, costs, trace, n_iters, n_valid=n_valid,
                         sh=sh)
     Z, W = best[0]
-    return _fit_outputs(Z, sh, best, {'dictionary': W})
+    return _fit_outputs(Z, sh, best, {'dictionary': W}, n_valid)

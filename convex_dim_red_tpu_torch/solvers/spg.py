@@ -41,6 +41,7 @@ from ..ops.simplex_qp import (MAX_K, UNPACKED_MAX_K, quad_simplex_qp,
                               quad_simplex_qp_packed,
                               quad_simplex_qp_packed_grouped)
 from ..utils.precision import apply_matmul_precision
+from ..utils.profiling import host_read
 from ..utils.validation import as_input
 
 __all__ = [
@@ -312,7 +313,7 @@ def quad_spg(matvec, B, x0, project, alpha0=-1.0,
     done = torch.zeros((R,), dtype=torch.bool, device=x.device)
     for it in range(int(max_iterations)):
         if it and it % check_every == 0:
-            stop = bool(done.all())
+            stop = bool(host_read(done.all()))
             if agree is not None:
                 stop = agree(stop)
             if stop:

@@ -8,6 +8,8 @@ messages.  The checks run on the host: tensors are copied there first.
 import numpy as np
 import torch
 
+from .profiling import to_device
+
 __all__ = [
     "as_input",
     "check_unit_axis_sums",
@@ -53,7 +55,8 @@ def as_input(data, device=None):
     else (a numpy array, a list) goes to ``device``, by default
     ``'cuda'``: the port runs on the card unless the caller asks for
     the CPU.  Raises ``RuntimeError`` where the device is CUDA and no
-    CUDA device is available, rather than running on the CPU.
+    CUDA device is available, rather than running on the CPU.  The
+    bytes copied to a card count in ``profiling.H2D_BYTES``.
     """
     if isinstance(data, torch.Tensor) and device is None:
         return data
@@ -63,4 +66,4 @@ def as_input(data, device=None):
             "no CUDA device is available, and the data goes to the card "
             "unless it is a tensor elsewhere: pass device='cpu' to run "
             "on the CPU")
-    return torch.as_tensor(data, device=device)
+    return to_device(data, device)

@@ -26,8 +26,7 @@ from convex_dim_red_tpu_torch.ops.simplex_projection import (
 from convex_dim_red_tpu_torch.solvers.spg import (line_search_step_length,
                                                   quad_simplex_spg,
                                                   quad_simplex_spg_batch)
-from convex_dim_red_tpu_torch.utils.profiling import (Timer, block_and_time,
-                                                      trace)
+from convex_dim_red_tpu_torch.utils.profiling import block_and_time, trace
 
 torch.set_num_threads(1)
 
@@ -274,9 +273,8 @@ def test_spg_is_exported_and_sends_arrays_to_the_card():
 
 
 def test_timer_and_block_and_time():
-    with Timer() as t:
-        pass
-    assert t.total >= 0 and len(t.laps) == 1 and t.mean == t.total
+    # The JAX package's Timer is not ported: on a card a host clock
+    # without a synchronize times the enqueue.  block_and_time waits.
     result, sec = block_and_time(lambda x: x * 2, torch.ones(8), repeats=3)
     assert sec >= 0 and torch.all(result == 2.0)
 
