@@ -9,7 +9,8 @@ Hopper GPU (sm_90a), PyTorch built for CUDA and ``nvcc``::
 ``python3 chip_smoke.py --scale-check-ab`` runs, instead of the phases,
 an A/B of the scale-factor SPG's host reads on phase 25's delta = 0.1
 paths and a profile of one iteration of its AA analysis
-(``scale_check_ab``).
+(``scale_check_ab``); ``python3 chip_smoke.py --k5`` runs phases 1, 2
+and 5b alone.
 
 Phases, each printing its own lines; any failed check or exception ends
 the run with a non-zero exit and no result line:
@@ -17,8 +18,9 @@ the run with a non-zero exit and no result line:
 1. Device: needs ``torch.cuda.is_available()``; prints the torch, CUDA
    and nvcc versions and the card's name and power limit.
 2. Build: compiles ``convex_dim_red_tpu_torch/csrc/simplex_qp.cu`` (K1,
-   K2; once per dtype) and ``simplex_qp_unpacked.cu`` (K3, K4) with
-   three nvcc processes at once, prints ptxas's register, spill and
+   K2; once per dtype), ``simplex_qp_unpacked.cu`` (K3, K4) and
+   ``residual_cost.cu`` (K5; once per dtype) with five nvcc processes
+   at once, prints ptxas's register, spill and
    shared-memory report and fails if any kernel has a stack frame or
    spills.
 3. Team-width sweep of the K1/K2 kernel: device time (a CUDA graph of
@@ -42,6 +44,11 @@ the run with a non-zero exit and no result line:
    each path's shape, and for K3/K4 the most iterations a row took and
    the device time of that slowest row launched alone (n = 1), the
    latency floor of a launch.
+5b. K5 (the fused residual cost) against its plain version in float64
+    and float32 at the benchmark's shape (25, 1788, 24030, k = 6) and
+    the JRA-55 PCs' (100, 732, 167, k = 4), its bits equal over two
+    launches; its device time (CUDA graph of 20 launches), the plain
+    version's, the ``C X`` product's and its bound.
 6. Small fit: the port's ``aa_fit_restarts`` in float64 on a numpy
    array with no ``device`` (so on the card) and with ``device='cpu'``
    (K1 and its plain version) from the same initial states (costs within
@@ -362,6 +369,8 @@ def ptxas_report(log):
                              r"Li(\d+)ELi(\d+)E", mangled)
             warp = re.search(r"simplex_qp_unpacked_kernelI([fd])Li(\d+)E",
                              mangled)
+            cost = re.search(r"(residual_cost(?:_sum)?)_kernelI([fd])E",
+                             mangled)
             if team:
                 name = "K1/K2 %s %s T %s NC %s" % (
                     "float" if team.group(1) == "f" else "double",
@@ -371,6 +380,10 @@ def ptxas_report(log):
                 name = "K3/K4 %s NC %s" % (
                     "float" if warp.group(1) == "f" else "double",
                     warp.group(2))
+            elif cost:
+                name = "K5 %s %s" % (
+                    cost.group(1).replace("_", " "),
+                    "float" if cost.group(2) == "f" else "double")
             else:
                 plain = re.search(r"\d+([a-z_]+)Ev$", mangled)
                 name = plain.group(1) if plain else mangled
@@ -386,10 +399,10 @@ def ptxas_report(log):
 
 
 def phase_build():
-    """The three libraries (K1/K2 in float32 and in float64, K3/K4), one
-    nvcc each, started together."""
+    """The five libraries (K1/K2 and K5 in float32 and in float64,
+    K3/K4), one nvcc each, started together."""
     import torch
-    from convex_dim_red_tpu_torch.ops import simplex_qp
+    from convex_dim_red_tpu_torch.ops import residual_cost, simplex_qp
     t0 = time.perf_counter()
     errors = []
 
@@ -402,17 +415,19 @@ def phase_build():
     threads = [threading.Thread(target=build, args=(load,)) for load in (
         lambda: simplex_qp.load_library(torch.float32),
         lambda: simplex_qp.load_library(torch.float64),
-        simplex_qp.load_unpacked_library)]
+        simplex_qp.load_unpacked_library,
+        lambda: residual_cost.load_library(torch.float32),
+        lambda: residual_cost.load_library(torch.float64))]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
-    print("build: %.1f s (three nvcc processes at once)"
+    print("build: %.1f s (five nvcc processes at once)"
           % (time.perf_counter() - t0))
     logs = simplex_qp.build_logs()
-    check(len(logs) == 3, "built %s" % sorted(logs))
+    check(len(logs) == 5, "built %s" % sorted(logs))
     for library, log in sorted(logs.items()):
         report = ptxas_report(log)
         check(len(report) > 1, "no ptxas report for %s" % library)
@@ -841,6 +856,84 @@ def phase_small_fit():
           % (walls["cuda"], walls["cpu"], walls["estimator"]))
 
 
+#: K5's shapes: the benchmark's main path (25 restarts of the
+#: HadISST-scale data, 1788 x 24,030, k = 6) and the JRA-55 PC analyses'
+#: (100 restarts of 732 x 167, k = 4), where its restarts split into
+#: groups.
+K5_SHAPES = (("HadISST scale", RESTART_CHUNK, N_SAMPLES, 24030, K),
+             ("JRA-55 PCs", 100, 732, 167, 4))
+
+
+def k5_operands(seed, R, n, d, k):
+    """K5's float32 operands as the AA iterate forms them: data of
+    ``make_data``'s model, ``C`` and ``Z`` on the simplex, ``CX = C X``
+    and ``alpha`` in [0.9, 1.1]; returns ``(X, Z, C, CX, alpha)``."""
+    import torch
+    rng = np.random.RandomState(seed)
+    X = torch.as_tensor(make_data(n, d), device=DEVICE)
+    C = torch.as_tensor(rng.dirichlet(np.ones(n), size=(R, k)),
+                        dtype=torch.float32, device=DEVICE)
+    Z = torch.as_tensor(rng.dirichlet(np.ones(k), size=(R, n)),
+                        dtype=torch.float32, device=DEVICE)
+    alpha = torch.as_tensor(rng.uniform(0.9, 1.1, size=(R, k)),
+                            dtype=torch.float32, device=DEVICE)
+    return X, Z, C, (C @ X).contiguous(), alpha
+
+
+def phase_k5():
+    """K5 against its plain version in float64 and float32 at
+    ``K5_SHAPES``, then its times: the device's (CUDA graph), the plain
+    version's and the ``C X`` product's (the rest of the cost's span)
+    the same way, the wrapper's (CUDA events), and the bound
+    ``max(bytes / 3.35 TB/s, 2 R n d (k + 1) / 67 TFLOP/s)`` (X, Z, CX,
+    alpha read once, the sums written once).
+    Returns the numbers at the first shape."""
+    import torch
+    from convex_dim_red_tpu_torch.ops import residual_cost as rc
+    out = {}
+    for seed, (label, R, n, d, k) in enumerate(K5_SHAPES):
+        X, Z, C, CX, alpha = k5_operands(seed, R, n, d, k)
+        args = (X, Z, CX, alpha)
+        got = rc.residual_sq_sums(*args)
+        again = rc.residual_sq_sums(*args)
+        plain = rc.residual_sq_sums_reference(*args)
+        want = rc.residual_sq_sums_reference(*(t.double() for t in args))
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), label + ": K5 bits differ")
+        err = float(((got.double() - want).abs() / want).max())
+        plain_err = float(((plain.double() - want).abs() / want).max())
+        check(err <= 1e-6, "%s: K5 %.3e from float64" % (label, err))
+        dev = device_ms(lambda: rc.residual_sq_sums(*args))
+        wrapper_ms = cuda_median_ms(lambda: rc.residual_sq_sums(*args))
+        plain_ms = device_ms(lambda: rc.residual_sq_sums_reference(*args))
+        gemm_ms = device_ms(lambda: C @ X)
+        flops = 2.0 * R * n * d * (k + 1)
+        nbytes = 4 * (n * d + R * n * k + R * k * d + R * k + R)
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"])
+        bound_ms = 1e3 * bound
+        print("  K5 %s (%d, %d, %d, %d) float32: device %.5f ms a launch "
+              "(CUDA graph of %d), wrapper %.4f ms (CUDA events, median of "
+              "10), plain version %.4f ms (%.1fx), C X "
+              "%.5f ms; bound %.5f ms (%s: %d bytes -> %.5f ms, %.4g "
+              "flops -> %.5f ms), %.1f%% of it; max rel err against "
+              "float64 %.3e (plain version in float32 %.3e)"
+              % (label, R, n, d, k, dev, GRAPH_LAUNCHES, wrapper_ms,
+                 plain_ms, plain_ms / dev, gemm_ms, bound_ms,
+                 "ops" if flops / PEAK_FLOPS["float32"]
+                 > nbytes / HBM_BYTES_PER_S else "bytes", nbytes,
+                 1e3 * nbytes / HBM_BYTES_PER_S, flops,
+                 1e3 * flops / PEAK_FLOPS["float32"], 100.0 * bound_ms / dev,
+                 err, plain_err))
+        out.setdefault("times", dict(
+            shape=[R, n, d, k], device_ms=dev, ms=wrapper_ms,
+            plain_ms=plain_ms, cx_gemm_ms=gemm_ms, bound_ms=bound_ms,
+            share=bound_ms / dev, max_rel_err=err,
+            plain_max_rel_err=plain_err))
+        del X, Z, C, CX, alpha, args, plain, want
+        torch.cuda.empty_cache()
+    return out["times"]
+
+
 def audit_cost_f64(result, X32):
     """bench.py:audit_cost_f64: the winner re-costed on the host in
     float64."""
@@ -873,7 +966,7 @@ def read_launches():
 def phase_main_path(card):
     import torch
     from convex_dim_red_tpu_torch import aa_fit_restarts
-    from convex_dim_red_tpu_torch.ops import simplex_qp
+    from convex_dim_red_tpu_torch.ops import residual_cost
     from convex_dim_red_tpu_torch.utils.precision import (
         set_matmul_precision)
     set_matmul_precision('float32')
@@ -889,11 +982,13 @@ def phase_main_path(card):
     run()
     warm_s = time.perf_counter() - t0
     reset_launches()
+    residual_cost.LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     result = run()
     elapsed = time.perf_counter() - t0
     launches = read_launches()
+    cost_launches = residual_cost.LAUNCHES
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     Z, C = result['weights'], result['dictionary']
@@ -910,6 +1005,11 @@ def phase_main_path(card):
                               MAX_ITER)
     check(launches == dict(K1=used, K2=0, K3=0, K4=0),
           "main path: launches %s, expected %d of K1" % (launches, used))
+    # One cost an iteration and one for each round's initial states.
+    print("  K5 launches %d: %d iterations and %d rounds' initial costs"
+          % (cost_launches, used, cost_launches - used))
+    check(cost_launches > used, "main path: %d K5 launches for %d K1"
+          % (cost_launches, used))
     audit = audit_cost_f64(result, X_host)
     rel = abs(audit / REFERENCE_AUDITED_COST - 1.0)
     print("  device cost %.4f, float64 audit %.4f, JAX reference audit "
@@ -3327,6 +3427,8 @@ def main():
     kernels = {"K1": phase_kernel()}
     phase("K2, K3 and K4 against their plain versions")
     kernels.update(phase_more_kernels())
+    phase("K5 against its plain version")
+    k5 = phase_k5()
     phase("small fit, card against CPU")
     phase_small_fit()
     phase("main path")
@@ -3394,15 +3496,31 @@ def main():
         launches=sum(by_path[key].values()),
         launches_by_path=by_path[key], **kernels[key])
         for key, name, source, replaces, _ in KERNELS]}))
+    print(json.dumps({"K5": dict(
+        name="residual_cost", route="cuda",
+        source="convex_dim_red_tpu_torch/csrc/residual_cost.cu",
+        replaces=None, **k5)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 
+def k5_only():
+    """``--k5``: the device, the build and K5's phase alone."""
+    card = phase_device()
+    phase_build()
+    k5 = phase_k5()
+    print(card)
+    print(json.dumps({"K5": k5}))
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--scale-check-ab"]:
         scale_check_ab()
+    elif sys.argv[1:] == ["--k5"]:
+        k5_only()
     elif sys.argv[1:]:
-        raise SystemExit("usage: python3 chip_smoke.py [--scale-check-ab]")
+        raise SystemExit("usage: python3 chip_smoke.py [--scale-check-ab | "
+                         "--k5]")
     else:
         main()

@@ -42,6 +42,7 @@ from ..models.gpnh_convex_coding import (
     _SCALAR_DTYPE as _GPNH_SDT, _cost_from_parts as _gpnh_cost_from_parts,
     _gpnh_gram, _gpnh_gram_masked, _solve_gpnh_dictionary,
     gpnh_regularization, gpnh_regularization_masked)
+from ..ops.residual_cost import residual_sq_sums
 from ..ops.simplex_projection import simplex_project_rows
 from ..solvers.spg import (quad_simplex_spg_batch_grouped, quad_spg,
                            resolve_qp_backend)
@@ -254,19 +255,17 @@ def _aa_pre_weights(K_loc, Z_loc, C, alpha, *, delta, do_scale,
 def _aa_iter_cost(X_loc, Z_loc, C, alpha, CK, CKCt, trace_K, sh):
     """The cost of each restart after its weights update: the residual
     form ``0.5 ||Z D C X - X||^2 / n`` when the data rows ``X_loc`` are
-    given (reliable in float32), the kernel trace form from ``trace_K``
-    otherwise.  The span ``cdr.aa.cost``."""
+    given (reliable in float32; its sums of squares are K5's on the
+    card, so no (R, n_loc, d) residual is formed there), the kernel
+    trace form from ``trace_K`` otherwise.  The span ``cdr.aa.cost``."""
     n_samples = C.shape[-1]
     rows = sh.rows(n_samples)
     with span("cdr.aa.cost"):
         if X_loc is not None:
             CX = sh.psum(C[..., rows] @ X_loc)             # (R, k, d)
-            resid = Z_loc @ (alpha[:, :, None] * CX)
-            # In place: the (R, n_loc, d) residual is the largest buffer
-            # of the fit.
-            resid -= X_loc
-            resid.square_()
-            return 0.5 * sh.psum(torch.sum(resid, dim=(1, 2))) / n_samples
+            sums = residual_sq_sums(X_loc, Z_loc.contiguous(), CX,
+                                    alpha.contiguous())
+            return 0.5 * sh.psum(sums) / n_samples
         CKZ = sh.psum(CK[..., rows] @ Z_loc)
         ZtZ = sh.psum(Z_loc.transpose(1, 2) @ Z_loc)
         return _cost_from_parts(trace_K, CKZ, ZtZ, CKCt, alpha, n_samples)
@@ -287,6 +286,8 @@ def _aa_iterate(X_loc, K_loc, *, delta, do_scale, dict_kwargs,
     alphas, costs)`` for :func:`_keep_best_loop`, and ``cost0(Zs, Cs,
     alphas)``, the costs of initial states.  The weights QPs are the span
     ``cdr.aa.weights``."""
+    if X_loc is not None:
+        X_loc = X_loc.contiguous()  # K5's operand; once, not an iteration
     def iterate(Zs, Cs, alphas):
         Cs, alphas, As, Bws, CKs, CKCts = _aa_pre_weights(
             K_loc, Zs, Cs, alphas, delta=delta, do_scale=do_scale,

@@ -92,9 +92,10 @@ def to_device(data, device):
 
 
 def counters():
-    """A snapshot of the port's counters: the four of this module and
-    the QP kernels' launch counts (``ops/simplex_qp``), by name."""
-    from ..ops import simplex_qp
+    """A snapshot of the port's counters: the four of this module, the
+    QP kernels' launch counts (``ops/simplex_qp``) and K5's
+    (``ops/residual_cost.LAUNCHES`` as ``COST_LAUNCHES``), by name."""
+    from ..ops import residual_cost, simplex_qp
     return {"RESTART_SLOTS": RESTART_SLOTS,
             "RESTART_ADVANCES": RESTART_ADVANCES,
             "HOST_READS": HOST_READS,
@@ -102,7 +103,8 @@ def counters():
             "LAUNCHES": simplex_qp.LAUNCHES,
             "PACKED_LAUNCHES": simplex_qp.PACKED_LAUNCHES,
             "GROUPED_LAUNCHES": simplex_qp.GROUPED_LAUNCHES,
-            "UNPACKED_LAUNCHES": simplex_qp.UNPACKED_LAUNCHES}
+            "UNPACKED_LAUNCHES": simplex_qp.UNPACKED_LAUNCHES,
+            "COST_LAUNCHES": residual_cost.LAUNCHES}
 
 
 #: The prefix of the program's span names.

@@ -16,7 +16,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from convex_dim_red_tpu_torch import (ArchetypalAnalysis, aa_fit_restarts,
                                       gpnh_fit_restarts)
-from convex_dim_red_tpu_torch.ops import simplex_qp
+from convex_dim_red_tpu_torch.ops import residual_cost, simplex_qp
 from convex_dim_red_tpu_torch.parallel import restarts
 from convex_dim_red_tpu_torch.utils import profiling
 
@@ -220,8 +220,9 @@ def test_counters_snapshot_names_every_counter():
     assert list(snap) == ["RESTART_SLOTS", "RESTART_ADVANCES",
                           "HOST_READS", "H2D_BYTES", "LAUNCHES",
                           "PACKED_LAUNCHES", "GROUPED_LAUNCHES",
-                          "UNPACKED_LAUNCHES"]
+                          "UNPACKED_LAUNCHES", "COST_LAUNCHES"]
     assert snap["LAUNCHES"] == simplex_qp.LAUNCHES
+    assert snap["COST_LAUNCHES"] == residual_cost.LAUNCHES
     assert all(isinstance(v, int) for v in snap.values())
 
 
