@@ -59,6 +59,7 @@ from ..utils import profiling
 from ..utils.precision import apply_matmul_precision
 from ..utils.profiling import host_read, span, to_device
 from ..utils.validation import as_input
+from .iterate_graph import StepGraphs
 from .mesh import (_all_gather, _axis, _broadcast, mesh_device,
                    require_device_mesh)
 from .sharded_aa import (_aa_iterate, _gpnh_iterate, _keep_best_loop,
@@ -248,15 +249,24 @@ def _round_run(iterate, cost0, *, tolerance, criterion):
     in place.  Nothing in a round waits on the host.  Duplicate indices
     (a tiled tail chunk) compute identical trajectories, so the scatter
     writes equal values.
+
+    The iterations run through one :class:`iterate_graph.StepGraphs`
+    for all the rounds and chunks of the fit: on a CUDA device, and
+    where ``iterate`` reads nothing on the host within an iteration,
+    each chunk shape's iterations after its first are replays of one
+    CUDA graph, on the same bits; elsewhere they are called directly.
     """
+    graphs = StepGraphs(iterate)
+
     def run(states_all, idx, max_iterations):
-        states = tuple(s[idx] for s in states_all)
+        states = graphs.gather(states_all, idx)
         states, costs, trace, n_iters, done = _keep_best_loop(
             states, cost0(*states), iterate, tolerance=tolerance,
-            criterion=criterion, max_iterations=max_iterations)
+            criterion=criterion, max_iterations=max_iterations,
+            advance=graphs)
         for s_all, s in zip(states_all, states):
             s_all[idx] = s
-        return states_all, costs, trace, n_iters, done
+        return (states_all, *graphs.own((costs, trace, n_iters, done)))
 
     return run
 

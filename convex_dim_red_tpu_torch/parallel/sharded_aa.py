@@ -44,7 +44,8 @@ from ..models.gpnh_convex_coding import (
     gpnh_regularization, gpnh_regularization_masked)
 from ..ops.residual_cost import residual_sq_sums
 from ..ops.simplex_projection import simplex_project_rows
-from ..solvers.spg import (quad_simplex_spg_batch_grouped, quad_spg,
+from ..solvers.spg import (_quad_spg_reads_host, _weights_qp_reads_host,
+                           quad_simplex_spg_batch_grouped, quad_spg,
                            resolve_qp_backend)
 from ..utils import profiling
 from ..utils.precision import apply_matmul_precision
@@ -62,8 +63,27 @@ __all__ = ["distributed_gram", "sharded_aa_train_step", "sharded_aa_fit",
 _ROUND = 32
 
 
+def _keep_best_step(iterate_batch, states, cost, done, n_iters, *,
+                    tolerance, criterion):
+    """One iteration of :func:`_keep_best_loop` on its carried tensors:
+    the iterate, the freeze of every restart already done, its count
+    and its stop test.  Returns ``((states, cost, done, n_iters),
+    delta)``, ``delta`` the (R,) cost deltas (0 where frozen)."""
+    out = iterate_batch(*states)
+    new_states, new_cost = tuple(out[:-1]), out[-1]
+    states = tuple(
+        torch.where(done.view((-1,) + (1,) * (n.ndim - 1)), o, n)
+        for o, n in zip(states, new_states))
+    new_cost = torch.where(done, cost, new_cost)
+    delta = torch.where(done, 0.0, new_cost - cost)
+    n_iters = n_iters + (~done).to(torch.int32)
+    done = done | has_converged(cost, new_cost, tolerance, criterion)
+    return (states, new_cost, done, n_iters), delta
+
+
 def _keep_best_loop(states, cost0, iterate_batch, *, tolerance, criterion,
-                    max_iterations, check_every=None, agree=None):
+                    max_iterations, check_every=None, agree=None,
+                    advance=None):
     """Advance a batch of restarts up to ``max_iterations`` alternating
     iterations, freezing each restart once it has converged.
 
@@ -81,8 +101,12 @@ def _keep_best_loop(states, cost0, iterate_batch, *, tolerance, criterion,
     A frozen restart does not change, so the outputs are the JAX
     loop's either way.
 
-    Each iteration is the span ``cdr.restarts.iteration`` and adds the
-    batch's width to ``profiling.RESTART_SLOTS``.
+    Each iteration is :func:`_keep_best_step` on the carried ``(states,
+    cost, done, n_iters)``, called directly or, with ``advance``, as
+    ``advance(step, carry) -> (carry, delta)``
+    (``iterate_graph.StepGraphs``, which may replay it as a CUDA
+    graph).  Each iteration is the span ``cdr.restarts.iteration`` and
+    adds the batch's width to ``profiling.RESTART_SLOTS``.
     """
     R = cost0.shape[0]
     device = cost0.device
@@ -90,28 +114,25 @@ def _keep_best_loop(states, cost0, iterate_batch, *, tolerance, criterion,
                         device=device)
     n_iters = torch.zeros((R,), dtype=torch.int32, device=device)
     done = torch.zeros((R,), dtype=torch.bool, device=device)
-    states = tuple(states)
-    cost = cost0
+
+    def step(carry):
+        return _keep_best_step(iterate_batch, *carry, tolerance=tolerance,
+                               criterion=criterion)
+
+    carry = (tuple(states), cost0, done, n_iters)
     for it in range(max_iterations):
         if check_every and it and it % check_every == 0:
-            stop = bool(host_read(done.all()))
+            stop = bool(host_read(carry[2].all()))
             if agree is not None:
                 stop = agree(stop)
             if stop:
                 break
         profiling.RESTART_SLOTS += R
         with span("cdr.restarts.iteration"):
-            out = iterate_batch(*states)
-            new_states, new_cost = tuple(out[:-1]), out[-1]
-            states = tuple(
-                torch.where(done.view((-1,) + (1,) * (n.ndim - 1)), o, n)
-                for o, n in zip(states, new_states))
-            new_cost = torch.where(done, cost, new_cost)
-            trace[:, it] = torch.where(done, 0.0, new_cost - cost)
-            n_iters += (~done).to(torch.int32)
-            done = done | has_converged(cost, new_cost, tolerance,
-                                        criterion)
-            cost = new_cost
+            carry, delta = (step(carry) if advance is None
+                            else advance(step, carry))
+            trace[:, it] = delta
+    states, cost, done, n_iters = carry
     return states, cost, trace, n_iters, done
 
 
@@ -285,7 +306,12 @@ def _aa_iterate(X_loc, K_loc, *, delta, do_scale, dict_kwargs,
     Returns ``(iterate, cost0)``: ``iterate(Zs, Cs, alphas) -> (Zs, Cs,
     alphas, costs)`` for :func:`_keep_best_loop`, and ``cost0(Zs, Cs,
     alphas)``, the costs of initial states.  The weights QPs are the span
-    ``cdr.aa.weights``."""
+    ``cdr.aa.weights``.  ``iterate.reads_host`` says whether an
+    iteration reads anything on the host: on a mesh (its collectives
+    and agreed stops) or where a solver's cap exceeds its stop-read
+    cadence (the dictionary's, with ``do_scale`` the scale factors',
+    and the weights' on the row solver); otherwise an iteration may be
+    captured as a CUDA graph (``iterate_graph``)."""
     if X_loc is not None:
         X_loc = X_loc.contiguous()  # K5's operand; once, not an iteration
     def iterate(Zs, Cs, alphas):
@@ -299,6 +325,13 @@ def _aa_iterate(X_loc, K_loc, *, delta, do_scale, dict_kwargs,
         costs = _aa_iter_cost(X_loc, Zs, Cs, alphas, CKs, CKCts, trace_K,
                               sh)
         return Zs, Cs, alphas, costs
+
+    iterate.reads_host = (
+        sh.mesh is not None
+        or _quad_spg_reads_host(dict_kwargs["max_iterations"])
+        or (do_scale and _quad_spg_reads_host(
+            scale_kwargs["max_iterations"], _SCALE_CHECK_EVERY))
+        or _weights_qp_reads_host(weights_backend, weights_kwargs))
 
     def cost0(Zs, Cs, alphas):
         rows = sh.rows(Cs.shape[-1])
@@ -330,6 +363,8 @@ def _gpnh_iterate(X_loc, *, lambda_W, weights_backend, weights_kwargs,
     Returns ``(iterate, cost0)``: ``iterate(Zs, Ws) -> (Zs, Ws, costs)``
     and ``cost0(Zs, Ws)``.  The spans ``cdr.gpnh.dictionary``,
     ``cdr.gpnh.weights`` and ``cdr.gpnh.cost`` hold the three steps.
+    ``iterate.reads_host`` is always true: the dictionary solve's SVD
+    waits on the host.
     """
     n_loc, n_features = X_loc.shape
     n_samples = n_loc * sh.n_sample_shards
@@ -375,6 +410,8 @@ def _gpnh_iterate(X_loc, *, lambda_W, weights_backend, weights_kwargs,
                 WtWs, Bs, Zs, backend=weights_backend, mask=component_mask,
                 **weights_kwargs)
         return Zs, Ws, cost_of(Zs, Ws, WtWs, -Bs)
+
+    iterate.reads_host = True
 
     def cost0(Zs, Ws):
         return cost_of(Zs, Ws, Ws.transpose(1, 2) @ Ws, X_loc @ Ws)

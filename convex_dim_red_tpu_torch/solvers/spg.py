@@ -361,6 +361,27 @@ def quad_spg(matvec, B, x0, project, alpha0=-1.0,
     return project(x)
 
 
+def _quad_spg_reads_host(max_iterations, check_every=_DONE_CHECK_EVERY):
+    """Whether a :func:`quad_spg` call capped at ``max_iterations``
+    reads the host: it reads its stop at every multiple of
+    ``check_every`` after the first iteration, so exactly when the cap
+    exceeds the cadence."""
+    return int(max_iterations) > int(check_every)
+
+
+def _weights_qp_reads_host(backend, solver_kwargs):
+    """Whether :func:`quad_simplex_spg_batch_grouped` with ``backend``
+    and the row solver's ``solver_kwargs`` reads the host: the kernels
+    ('pallas') do not (a mask kept on the host, as the restart runners
+    keep theirs, is read there); the row solver does when its cap,
+    ``min(max_iterations, max_feval)``, exceeds :func:`quad_spg`'s
+    cadence."""
+    if backend == "pallas":
+        return False
+    return _quad_spg_reads_host(min(solver_kwargs["max_iterations"],
+                                    solver_kwargs["max_feval"]))
+
+
 def resolve_qp_backend(backend, k=None, regime="oneshot", device=None):
     """Resolve a ``backend='auto'`` weights-QP backend choice.
 

@@ -15,8 +15,9 @@ tracing module.
   span's host time and the device time of the work launched inside
   it.
 - The counters (:data:`RESTART_SLOTS`, :data:`RESTART_ADVANCES`,
-  :data:`HOST_READS`, :data:`H2D_BYTES`) are host integers, always on,
-  added to where the work happens and never read from the device, as
+  :data:`HOST_READS`, :data:`H2D_BYTES`, :data:`GRAPH_CAPTURES`,
+  :data:`GRAPH_REPLAYS`) are host integers, always on, added to where
+  the work happens and never read from the device, as
   ``ops/simplex_qp.LAUNCHES`` is.  :func:`counters` takes a snapshot of
   them and of the kernels' launch counts.
 - :func:`block_and_time` times a call to its result on the card.
@@ -31,7 +32,8 @@ import torch
 
 __all__ = ["span", "trace", "span_summary", "counters", "host_read",
            "to_device", "block_and_time", "RESTART_SLOTS",
-           "RESTART_ADVANCES", "HOST_READS", "H2D_BYTES"]
+           "RESTART_ADVANCES", "HOST_READS", "H2D_BYTES",
+           "GRAPH_CAPTURES", "GRAPH_REPLAYS"]
 
 #: Restart-iterations the device ran: every iteration of a batched
 #: restart loop adds the batch's width, tiled duplicates and restarts
@@ -51,6 +53,14 @@ HOST_READS = 0
 #: scheduler's index tensors.
 H2D_BYTES = 0
 
+#: Restart-loop iterations captured as a CUDA graph
+#: (``parallel/iterate_graph.StepGraphs``): one a chunk shape and fit.
+GRAPH_CAPTURES = 0
+
+#: Restart-loop iterations run as a replay of such a graph: a fit's
+#: chunk-iterations less those that ran eagerly.
+GRAPH_REPLAYS = 0
+
 _enabled = torch._C._autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
 
@@ -67,10 +77,18 @@ def host_read(t):
     """A tensor ``t`` on the host, counted in :data:`HOST_READS`: its
     number (``t.item()``) if it has no axes, else ``t.cpu()``.  On a
     card the host waits here for the work that makes ``t``.  Anything
-    else is returned as it is, uncounted."""
+    else is returned as it is, uncounted.  Raises ``RuntimeError`` while
+    the current CUDA stream is capturing a graph, where no read can
+    wait for its work."""
     global HOST_READS
     if not isinstance(t, torch.Tensor):
         return t
+    if torch.cuda.is_initialized() and \
+            torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "host_read while the current CUDA stream is capturing a "
+            "graph: the captured work reads the host, so it cannot be a "
+            "graph (parallel/iterate_graph.capturable)")
     HOST_READS += 1
     return t.item() if t.dim() == 0 else t.cpu()
 
@@ -92,7 +110,7 @@ def to_device(data, device):
 
 
 def counters():
-    """A snapshot of the port's counters: the four of this module, the
+    """A snapshot of the port's counters: the six of this module, the
     QP kernels' launch counts (``ops/simplex_qp``) and K5's
     (``ops/residual_cost.LAUNCHES`` as ``COST_LAUNCHES``), by name."""
     from ..ops import residual_cost, simplex_qp
@@ -100,6 +118,8 @@ def counters():
             "RESTART_ADVANCES": RESTART_ADVANCES,
             "HOST_READS": HOST_READS,
             "H2D_BYTES": H2D_BYTES,
+            "GRAPH_CAPTURES": GRAPH_CAPTURES,
+            "GRAPH_REPLAYS": GRAPH_REPLAYS,
             "LAUNCHES": simplex_qp.LAUNCHES,
             "PACKED_LAUNCHES": simplex_qp.PACKED_LAUNCHES,
             "GROUPED_LAUNCHES": simplex_qp.GROUPED_LAUNCHES,

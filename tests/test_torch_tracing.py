@@ -218,7 +218,8 @@ def test_host_reads_of_a_transform_and_of_a_dictionary_solve():
 def test_counters_snapshot_names_every_counter():
     snap = profiling.counters()
     assert list(snap) == ["RESTART_SLOTS", "RESTART_ADVANCES",
-                          "HOST_READS", "H2D_BYTES", "LAUNCHES",
+                          "HOST_READS", "H2D_BYTES", "GRAPH_CAPTURES",
+                          "GRAPH_REPLAYS", "LAUNCHES",
                           "PACKED_LAUNCHES", "GROUPED_LAUNCHES",
                           "UNPACKED_LAUNCHES", "COST_LAUNCHES"]
     assert snap["LAUNCHES"] == simplex_qp.LAUNCHES

@@ -19,12 +19,18 @@ For each seed, after a warm-up fit of 2 iterations:
 1. one fit without the profiler, timed to its end, with the change of
    every counter of ``utils/profiling.counters()``: the restart slots
    the device ran and those that advanced a restart, the host reads,
-   the host-to-device bytes, K1's launches;
+   the host-to-device bytes, K1's launches, and the chunk-iterations
+   captured as a CUDA graph and replayed (``GRAPH_CAPTURES``,
+   ``GRAPH_REPLAYS``, printed again on their own);
 2. one fit under ``torch.profiler`` (CPU and CUDA activity), timed the
    same way, and ``profiling.span_summary`` of its trace: for each
    ``cdr.*`` span its count, host and self time, the device time it
    launched as the innermost span and in all, and the idle time that
-   began inside it.
+   began inside it.  Where the iterations replay a graph, the
+   iteration's inner spans (``cdr.aa.*``) cover only its eager
+   iterations and the capture; the replays' device time a
+   chunk-iteration (``cdr.restarts.replay``) is printed beside them,
+   with the capture's host time (``capture_host_ms``).
 
 Then the transform (``--phases`` names the phases that run): the
 set-up fit (the mix's arguments, ``random_state`` the first seed),
@@ -137,6 +143,8 @@ def fit_phase(port, profiling, X, args, seed, chunk):
            "step_ms": 1e3 * wall / launches if launches else None,
            "useful_from_launches_pct": (100.0 * iters / (chunk * launches)
                                         if launches else None)}
+    for name in ("GRAPH_CAPTURES", "GRAPH_REPLAYS"):
+        out[name] = cnt.get(name)
     if "RESTART_SLOTS" in cnt and cnt["RESTART_SLOTS"]:
         out["useful_slot_pct"] = (100.0 * cnt["RESTART_ADVANCES"]
                                   / cnt["RESTART_SLOTS"])
@@ -150,7 +158,10 @@ def fit_phase(port, profiling, X, args, seed, chunk):
         out["per_step_device_ms"] = {
             n: per_step(spans, n) for n in (
                 "cdr.aa.cost", "cdr.aa.dictionary", "cdr.aa.weights",
-                "cdr.restarts.iteration")}
+                "cdr.restarts.iteration", "cdr.restarts.replay")}
+        capture = spans.get("cdr.restarts.capture")
+        out["capture_host_ms"] = (1e3 * capture["host_s"]
+                                  if capture else None)
         it = spans.get("cdr.restarts.iteration")
         if it and table["busy_s"]:
             out["iteration_share_of_busy_pct"] = (
