@@ -1283,7 +1283,7 @@ def phase_pca_gpnh(card):
     import torch
     from convex_dim_red_tpu_torch import PCA, gpnh_fit_restarts
     from convex_dim_red_tpu_torch.ops import simplex_qp as sq
-    from convex_dim_red_tpu_torch.parallel.restarts import _ONE_SHOT_ROUND
+    from convex_dim_red_tpu_torch.parallel.sharded_aa import _ROUND
     X = torch.as_tensor(make_data(GPNH_SAMPLES, GPNH_FEATURES),
                         device=DEVICE)
     paths = {}
@@ -1339,7 +1339,7 @@ def phase_pca_gpnh(card):
         n_iters = res['n_iters']
         check(bool(np.all(np.isfinite(res['costs']))), "non-finite costs")
         check_simplex_rows("GPNH weights", res['weights'])
-        used = compacted_launches(n_iters, n_init, _ONE_SHOT_ROUND,
+        used = compacted_launches(n_iters, n_init, _ROUND,
                                   GPNH_FIT['max_iterations'])
         check(launches == dict(K1=used, K2=0, K3=0, K4=0),
               "GPNH best of %d: launches %s, expected %d of K1"
@@ -1498,7 +1498,7 @@ def phase_aa_one_shot(X_host, compacted, compacted_wall, card):
     phase 7's schedule, so the same launches and bits."""
     import torch
     from convex_dim_red_tpu_torch import aa_fit_restarts
-    from convex_dim_red_tpu_torch.parallel.restarts import _ONE_SHOT_ROUND
+    from convex_dim_red_tpu_torch.parallel.sharded_aa import _ROUND
     X = torch.as_tensor(X_host, device=DEVICE)
     reset_launches()
     t0 = time.perf_counter()
@@ -1510,7 +1510,7 @@ def phase_aa_one_shot(X_host, compacted, compacted_wall, card):
     check_simplex_rows("AA one-shot Z", res['weights'])
     check_simplex_rows("AA one-shot C", res['dictionary'])
     used = compacted_launches(res['n_iters'], RESTART_CHUNK,
-                              _ONE_SHOT_ROUND, MAX_ITER)
+                              _ROUND, MAX_ITER)
     check(launches == dict(K1=used, K2=0, K3=0, K4=0),
           "AA one-shot: launches %s, expected %d of K1" % (launches, used))
     audit = audit_cost_f64(res, X_host)
@@ -1519,7 +1519,7 @@ def phase_aa_one_shot(X_host, compacted, compacted_wall, card):
           "wall %.3f s against %.3f s in phase 7, %d K1 launches, n_iters "
           "mean %.2f, device cost %.4f, float64 audit %.4f (rel diff %.2e "
           "from %.2f), on %s"
-          % (_ONE_SHOT_ROUND, RESTART_CHUNK, wall, compacted_wall,
+          % (_ROUND, RESTART_CHUNK, wall, compacted_wall,
              launches["K1"],
              float(np.mean(res['n_iters'])), res['cost'], audit, rel,
              REFERENCE_AUDITED_COST, card))
@@ -1738,23 +1738,23 @@ def phase_padded_aa(card):
                        device=DEVICE)
     C_pad[:, :5] = C
     a_pad = torch.ones((8, 8), dtype=torch.float64, device=DEVICE)
-    from convex_dim_red_tpu_torch.models import _common
-    statics = dict(
-        max_iterations=200, criterion='rel_delta_f', do_scale=False,
-        has_data=True,
-        dict_cfg=_common.make_config(_common.SPGSolverConfig,
-                                     {'max_iterations': 1}),
-        weights_cfg=_common.make_config(_common.QPSolverConfig,
-                                        {'max_iterations': 25}),
-        scale_cfg=_common.SPGSolverConfig())
+    from convex_dim_red_tpu_torch.parallel import sharded_aa
     fits = []
     reset_launches()
-    for st, mask in ((states, None),
-                     ((Z_pad, C_pad, a_pad),
-                      restarts._padded_components(5, 8)[1])):
-        best, costs, n_iters = restarts._compacted_aa_best(
-            Xs, st, 0.0, 1e-6, statics=statics, grouped_backend='pallas',
-            restart_chunk=4, round_iterations=32, component_mask=mask)
+    for st, k, mask in ((states, 5, None),
+                        ((Z_pad, C_pad, a_pad), 8,
+                         restarts._padded_components(5, 8)[1])):
+        iterate, cost0 = sharded_aa._aa_iterate(
+            Xs, restarts._gram_once(Xs), n_components=k, delta=0.0,
+            do_scale=False, sh=sharded_aa._Shard(device=DEVICE),
+            dictionary_solver_kwargs={'max_iterations': 1},
+            weights_solver_kwargs={'backend': 'pallas',
+                                   'max_iterations': 25},
+            component_mask=mask)
+        best, costs, n_iters, _ = restarts._best_of_restarts(
+            iterate, cost0, st, tolerance=1e-6, criterion='rel_delta_f',
+            max_iterations=200, restart_chunk=4, compact_iterations=32,
+            screen_iterations=None, screen_keep=None, screen_margin=None)
         fits.append((best, costs, n_iters))
     torch.cuda.synchronize()
     check(read_launches()["K1"] > 0, "float64 padded check: no K1 launch")
@@ -2340,7 +2340,7 @@ def phase_case_study(card):
     import torch
     from convex_dim_red_tpu_torch.cli import common
     from convex_dim_red_tpu_torch.ops import simplex_qp as sq
-    from convex_dim_red_tpu_torch.parallel.restarts import _ONE_SHOT_ROUND
+    from convex_dim_red_tpu_torch.parallel.sharded_aa import _ROUND
     from convex_dim_red_tpu_torch.pipelines import preprocess as pp
     d = hadisst_case_study_data()
     train, val, missing = d['train'], d['val'], d['missing']
@@ -2348,7 +2348,7 @@ def phase_case_study(card):
     # audits take the data as the fit saw it.
     X64 = train.astype(np.float32).astype(np.float64)
     paths, held = {}, {}
-    k1 = {K1_WRAPPER: (0, _ONE_SHOT_ROUND)}
+    k1 = {K1_WRAPPER: (0, _ROUND)}
     k2_plain = _one_group(sq.quad_simplex_qp_packed_grouped_reference)
 
     # k-means at bin/run_hadisst_kmeans_wrapper.sh's settings.
@@ -3048,13 +3048,13 @@ def phase_jra55_case_study(card):
     from convex_dim_red_tpu_torch.cli import common
     from convex_dim_red_tpu_torch.cli.specs import JRA55_PCS
     from convex_dim_red_tpu_torch.ops import simplex_qp as sq
-    from convex_dim_red_tpu_torch.parallel.restarts import _ONE_SHOT_ROUND
+    from convex_dim_red_tpu_torch.parallel.sharded_aa import _ROUND
     from convex_dim_red_tpu_torch.pipelines import preprocess as pp
     d = jra55_case_study_data()
     train, val, missing = d['train'], d['val'], d['missing']
     X64 = train.astype(np.float32).astype(np.float64)
     paths, held = {}, {}
-    k1 = {K1_WRAPPER: (0, _ONE_SHOT_ROUND)}
+    k1 = {K1_WRAPPER: (0, _ROUND)}
 
     # PCA with the wrappers' 167 EOFs (the Gram path: 16,416 features >
     # 4 x 659 samples), tolerance 1e-8.

@@ -19,15 +19,12 @@ import sys
 import numpy as np
 import torch
 
-from ..models._common import QPSolverConfig, SPGSolverConfig
 from ..ops import simplex_qp
-from ..models.archetypal_analysis import _spg_cfg_to_quad_kwargs
 from .mesh import create_mesh, spawn
-from .restarts import (_aa_grouped_iterate, _gpnh_grouped_iterate,
-                       aa_fit_restarts)
-from .sharded_aa import (_keep_best_loop, sharded_aa_fit,
-                         sharded_aa_train_step, sharded_gpnh_fit,
-                         sharded_kernel_aa_fit)
+from .restarts import aa_fit_restarts
+from .sharded_aa import (_aa_iterate, _gpnh_iterate, _keep_best_loop,
+                         _Shard, sharded_aa_fit, sharded_aa_train_step,
+                         sharded_gpnh_fit, sharded_kernel_aa_fit)
 
 __all__ = ["dryrun_multichip"]
 
@@ -78,20 +75,17 @@ def single_aa_fit(X, Zs, Cs, alphas, *, has_data=True, delta=0.0,
                   dictionary_solver_kwargs=None, weights_solver_kwargs=None,
                   criterion='abs_delta_f'):
     """The single-device counterpart of :func:`sharded_aa_fit` (and, with
-    ``has_data=False``, of the kernel fit): the restart-grouped iterate
-    of parallel/restarts.py from the same states, every restart to its
-    own convergence.  Returns ``(costs, n_iters, states)``."""
-    weights = weights_solver_kwargs or WEIGHTS_KW
+    ``has_data=False``, of the kernel fit): the restart runners' iterate
+    on one device from the same states, every restart to its own
+    convergence.  Returns ``(costs, n_iters, states)``."""
     X = torch.as_tensor(X, device=device)
     K = X @ X.T if has_data else X
-    iterate, cost0 = _aa_grouped_iterate(
-        X if has_data else None, K, delta=float(delta),
-        do_scale=float(delta) != 0.0, has_data=has_data,
-        dict_kwargs=_spg_cfg_to_quad_kwargs(
-            SPGSolverConfig(**(dictionary_solver_kwargs or {}))),
-        weights_backend=weights['backend'],
-        weights_kwargs=QPSolverConfig(**weights).kwargs(),
-        scale_kwargs=_spg_cfg_to_quad_kwargs(SPGSolverConfig()),
+    iterate, cost0 = _aa_iterate(
+        X if has_data else None, K, n_components=np.shape(Zs)[-1],
+        delta=float(delta), do_scale=float(delta) != 0.0,
+        sh=_Shard(device=device),
+        dictionary_solver_kwargs=dictionary_solver_kwargs,
+        weights_solver_kwargs=weights_solver_kwargs or WEIGHTS_KW,
         trace_K=None if has_data else torch.trace(K))
     states = tuple(torch.as_tensor(a, dtype=X.dtype, device=device)
                    for a in (Zs, Cs, alphas))
@@ -107,12 +101,11 @@ def single_gpnh_costs(X, Zs, Ws, *, lambda_W, tolerance=1e-10,
     """The single-device counterpart of :func:`sharded_gpnh_fit`: the
     restart-grouped GPNH iterate from the same states.  Returns
     ``(costs, n_iters)``."""
-    weights = weights_solver_kwargs or WEIGHTS_KW
     X = torch.as_tensor(X, device=device)
-    k = Zs.shape[-1]
-    iterate, cost0 = _gpnh_grouped_iterate(
-        X, lambda_W=lambda_W, weights_backend=weights['backend'],
-        weights_kwargs=QPSolverConfig(**weights).kwargs(), n_components=k)
+    iterate, cost0 = _gpnh_iterate(
+        X, lambda_W=lambda_W, n_components=Zs.shape[-1],
+        sh=_Shard(device=device),
+        weights_solver_kwargs=weights_solver_kwargs or WEIGHTS_KW)
     states = tuple(torch.as_tensor(a, device=device) for a in (Zs, Ws))
     _, costs, _, n_iters, _ = _keep_best_loop(
         states, cost0(*states), iterate, tolerance=tolerance,
@@ -152,14 +145,12 @@ def _world(device_type):
             mesh, X, Zs, Cs, alphas, dict_iterations=3,
             weights_iterations=20, weights_backend='pallas')
         Xt = torch.as_tensor(X, device=device)
-        iterate, _ = _aa_grouped_iterate(
-            Xt, Xt @ Xt.T, delta=0.0, do_scale=False, has_data=True,
-            dict_kwargs=_spg_cfg_to_quad_kwargs(
-                SPGSolverConfig(max_iterations=3)),
-            weights_backend='pallas',
-            weights_kwargs=QPSolverConfig(max_iterations=20).kwargs(),
-            scale_kwargs=_spg_cfg_to_quad_kwargs(SPGSolverConfig()),
-            trace_K=None)
+        iterate, _ = _aa_iterate(
+            Xt, Xt @ Xt.T, n_components=k, delta=0.0, do_scale=False,
+            sh=_Shard(device=device),
+            dictionary_solver_kwargs={'max_iterations': 3},
+            weights_solver_kwargs={'backend': 'pallas',
+                                   'max_iterations': 20})
         want = iterate(*(torch.as_tensor(a, device=device)
                          for a in (Zs, Cs, alphas)))
         errors[tag + " train step"] = max(

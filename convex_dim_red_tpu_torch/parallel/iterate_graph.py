@@ -20,10 +20,10 @@ iteration:
   gathers the next chunk of the shape into them, so no second set of
   states is kept.  An iteration's cost deltas land in one (R,) tensor
   of the graph, which the loop copies into its trace;
-- the kernels' launch counters (``ops/simplex_qp``'s four,
-  ``ops/residual_cost.LAUNCHES``) advance at the capture by what one
-  iteration launches; the capture's own advance is taken back and
-  every replay adds it, so the counts are the eager loop's.
+- the kernels' launch counters (``ops.LAUNCH_COUNTERS``) advance at
+  the capture by what one iteration launches; the capture's own
+  advance is taken back and every replay adds it, so the counts are the
+  eager loop's.
   ``utils/profiling.GRAPH_CAPTURES`` and ``GRAPH_REPLAYS`` count the
   captures and the replays.  The iteration's inner spans
   (``cdr.aa.dictionary``, ``.weights``, ``.cost``) appear only for the
@@ -48,18 +48,11 @@ and their pools go with the round runner, when the fit returns.
 
 import torch
 
-from ..ops import residual_cost, simplex_qp
+from ..ops import LAUNCH_COUNTERS
 from ..utils import profiling
 from ..utils.profiling import span
 
 __all__ = ["StepGraphs", "capturable"]
-
-#: The launch counters an iteration's kernels advance: each replay adds
-#: what the capture counted.
-_COUNTED = ((simplex_qp, "LAUNCHES"), (simplex_qp, "PACKED_LAUNCHES"),
-            (simplex_qp, "GROUPED_LAUNCHES"),
-            (simplex_qp, "UNPACKED_LAUNCHES"), (residual_cost, "LAUNCHES"))
-
 
 def capturable(iterate, device):
     """Whether iterations of ``iterate`` on ``device`` may run as a CUDA
@@ -70,17 +63,18 @@ def capturable(iterate, device):
 
 
 def _counts():
-    return [getattr(module, name) for module, name in _COUNTED]
+    return [getattr(module, attribute)
+            for module, attribute, _ in LAUNCH_COUNTERS]
 
 
 def _set_counts(values):
-    for (module, name), value in zip(_COUNTED, values):
-        setattr(module, name, value)
+    for (module, attribute, _), value in zip(LAUNCH_COUNTERS, values):
+        setattr(module, attribute, value)
 
 
 def _recording_launches(fn):
     """``(fn(), launches)``: ``launches`` what ``fn`` added to each
-    counter of :data:`_COUNTED`, taken back from the counters."""
+    counter of ``ops.LAUNCH_COUNTERS``, taken back from the counters."""
     before = _counts()
     try:
         out = fn()

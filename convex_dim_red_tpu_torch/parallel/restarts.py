@@ -4,16 +4,22 @@ coding.
 Port of the single-device grouped paths of
 convex_dim_red_tpu/parallel/restarts.py.  The initial states of all
 restarts are drawn at once on the device (random, or picked by
-FurthestSum from one start index per restart), and the weights QPs of
-every restart in a batch are solved in one grouped call per iteration
-(:func:`_aa_grouped_iterate`, :func:`_gpnh_grouped_iterate`), with each
-restart frozen once it has converged (``sharded_aa._keep_best_loop``).
+FurthestSum from one start index per restart).  A fit is two parts:
+
+- the iterate, ``sharded_aa._aa_iterate`` or ``_gpnh_iterate`` on a
+  ``_Shard`` of one device, built from the fit's solver settings: every
+  restart of a batch advances one alternating iteration, the weights QPs
+  of all in one grouped call;
+- the schedule, :func:`_best_of_restarts`, which runs any iterate from
+  given initial states, each restart frozen once it has converged
+  (``sharded_aa._keep_best_loop``).
+
 One scheduler drives the batch, :func:`_compacted_best`: restarts run
 in rounds of M iterations, after each of which the converged ones retire
 and the survivors are re-packed into dense chunks of ``restart_chunk``.
 ``compact_iterations=M`` sets the round; the default
 (``compact_iterations=None``, the JAX package's one-shot grouped runner)
-runs rounds of :data:`_ONE_SHOT_ROUND`.  Every restart follows the
+runs rounds of ``sharded_aa._ROUND``.  Every restart follows the
 trajectory of one unchunked fit, so both settings give the JAX
 one-shot runner's results restart for restart, and the fit stops once
 every restart is done, as that runner's loop does.  The host reads only
@@ -46,15 +52,11 @@ item 18).
 import numpy as np
 import torch
 
-from ..models._common import (QPSolverConfig, SPGSolverConfig,
-                              STOPPING_CRITERIA, _fit_device,
-                              _generator_on, make_config)
-from ..models.archetypal_analysis import (_scalar_dtype,
-                                          _spg_cfg_to_quad_kwargs)
+from ..models._common import STOPPING_CRITERIA, _fit_device, _generator_on
+from ..models.archetypal_analysis import _scalar_dtype
 from ..ops.furthest_sum import (dissimilarities_from_kernel,
                                 furthest_sum_device)
 from ..ops.stochastic_matrices import right_stochastic_matrix
-from ..solvers.spg import resolve_qp_backend
 from ..utils import profiling
 from ..utils.precision import apply_matmul_precision
 from ..utils.profiling import host_read, span, to_device
@@ -62,17 +64,11 @@ from ..utils.validation import as_input
 from .iterate_graph import StepGraphs
 from .mesh import (_all_gather, _axis, _broadcast, mesh_device,
                    require_device_mesh)
-from .sharded_aa import (_aa_iterate, _gpnh_iterate, _keep_best_loop,
-                         _Shard)
+from .sharded_aa import (_ROUND, _aa_iterate, _gpnh_iterate,
+                         _keep_best_loop, _Shard)
 
 __all__ = ["aa_fit_restarts", "kernel_aa_fit_restarts",
            "gpnh_fit_restarts", "select_best"]
-
-#: Iterations a round under ``compact_iterations=None`` and in both
-#: phases of a screened fit: the JAX package's one-shot runner reads no
-#: scalar until every restart is done; here the host reads the round's
-#: scalars once every 32.
-_ONE_SHOT_ROUND = 32
 
 
 def select_best(costs, state):
@@ -193,43 +189,6 @@ def _init_aa_state(generator, n_init, delta, *, n_samples, n_components,
         alpha = torch.ones((n_init, n_components), dtype=dtype,
                            device=device)
     return Z, C, alpha
-
-
-def _aa_grouped_iterate(X, K, *, delta, do_scale, has_data, dict_kwargs,
-                        weights_backend, weights_kwargs, scale_kwargs,
-                        trace_K, component_mask=None):
-    """Restart-batched AA alternating iterate on one device, with the
-    weights QP grouped across restarts: ``sharded_aa._aa_iterate`` with
-    no mesh.  Every operand carries the restart axis first.
-
-    ``has_data``: ``X`` is the data and the cost is the residual form
-    ``0.5 ||Z diag(alpha) C X - X||^2 / n``; otherwise the cost is the
-    trace form from ``trace_K`` on the kernel ``K``.
-    ``component_mask`` runs a padded fit.
-
-    Returns ``(iterate, cost0)``: ``iterate(Zs, Cs, alphas) -> (Zs, Cs,
-    alphas, costs)`` and ``cost0(Zs, Cs, alphas)``, the initial costs.
-    """
-    return _aa_iterate(
-        X if has_data else None, K, delta=delta, do_scale=do_scale,
-        dict_kwargs=dict_kwargs, weights_backend=weights_backend,
-        weights_kwargs=weights_kwargs, scale_kwargs=scale_kwargs,
-        sh=_Shard(device=K.device), trace_K=trace_K,
-        component_mask=component_mask)
-
-
-def _grouped_solver_kwargs(dict_cfg, weights_cfg, scale_cfg):
-    return (_spg_cfg_to_quad_kwargs(dict_cfg), weights_cfg.kwargs(),
-            _spg_cfg_to_quad_kwargs(scale_cfg))
-
-
-def _prepare_grouped(X, has_data, K):
-    """The data operand of the residual-form cost and ``trace K`` for
-    the trace form.  ``K`` is the Gram, computed once per fit (or the
-    kernel itself when ``not has_data``)."""
-    data = X if has_data else None
-    trace_K = None if has_data else torch.trace(K).to(_scalar_dtype(K.dtype))
-    return K, data, trace_K
 
 
 @apply_matmul_precision
@@ -411,7 +370,7 @@ def _screened_best(states, round_call, *, max_iterations,
     again, as in the JAX package's resume runner.
 
     Both phases are :func:`_compacted_best` in rounds of
-    :data:`_ONE_SHOT_ROUND` over chunks of ``restart_chunk``; a frozen
+    :data:`_ROUND` over chunks of ``restart_chunk``; a frozen
     restart does not change, so every restart ends as it does under the
     JAX package's screen and resume runners.
 
@@ -431,7 +390,7 @@ def _screened_best(states, round_call, *, max_iterations,
     R = states[0].shape[0]
     screen = dict(max_iterations=int(screen_iterations),
                   restart_chunk=restart_chunk,
-                  round_iterations=_ONE_SHOT_ROUND, round_call=round_call)
+                  round_iterations=_ROUND, round_call=round_call)
     if groups is None:
         screened, screen_costs, screen_iters, _, _ = _compacted_best(
             R, tuple(s.clone() for s in states), **screen)
@@ -469,7 +428,7 @@ def _screened_best(states, round_call, *, max_iterations,
     best, res_costs, res_iters = _best_of_compacted(
         tuple(s[idx] for s in screened), round_call,
         max_iterations=int(max_iterations), restart_chunk=restart_chunk,
-        round_iterations=_ONE_SHOT_ROUND, groups=groups)
+        round_iterations=_ROUND, groups=groups)
 
     costs = screen_costs.copy()
     n_iters = screen_iters.copy()
@@ -478,117 +437,69 @@ def _screened_best(states, round_call, *, max_iterations,
     return best, costs, n_iters, screen
 
 
-def _aa_grouped_parts(X, delta, statics, grouped_backend, gram,
-                      component_mask=None):
-    """``(iterate, cost0)`` of :func:`_aa_grouped_iterate` for a fit's
-    ``statics`` (``max_iterations``, ``criterion``, ``do_scale``,
-    ``has_data`` and the three solver configs).  ``gram`` is ``X X'`` if
-    the caller already has it: it is made once per fit."""
-    has_data = statics['has_data']
-    dict_kwargs, weights_kwargs, scale_kwargs = _grouped_solver_kwargs(
-        statics['dict_cfg'], statics['weights_cfg'], statics['scale_cfg'])
-    if gram is None:
-        gram = _gram_once(X) if has_data else X
-    K, data, trace_K = _prepare_grouped(X, has_data, gram)
-    return _aa_grouped_iterate(
-        data, K, delta=delta, do_scale=statics['do_scale'],
-        has_data=has_data, dict_kwargs=dict_kwargs,
-        weights_backend=grouped_backend, weights_kwargs=weights_kwargs,
-        scale_kwargs=scale_kwargs, trace_K=trace_K,
-        component_mask=component_mask)
-
-
-def _make_aa_grouped_round_run(X, gram, *, delta, tolerance, statics,
-                               grouped_backend, component_mask=None):
-    """One bounded compaction round of grouped AA restarts
-    (:func:`_round_run`)."""
-    iterate, cost0 = _aa_grouped_parts(X, delta, statics,
-                                       grouped_backend, gram,
-                                       component_mask)
-    return _round_run(iterate, cost0, tolerance=tolerance,
-                      criterion=statics['criterion'])
-
-
 @apply_matmul_precision
-def _compacted_aa_best(X, states, delta, tolerance, *, statics,
-                       grouped_backend, restart_chunk, round_iterations,
-                       gram=None, component_mask=None, groups=None):
-    """Multi-restart AA with convergence compaction, from given initial
-    states ``(Zs, Cs, alphas)`` (see :func:`_compacted_best`;
-    ``statics`` as in :func:`_aa_grouped_parts`).  Returns ``(best,
-    costs, n_iters)`` with ``best = (Z, C, alpha, trace, best_cost,
-    best_n_iter)``."""
-    run = _make_aa_grouped_round_run(X, gram, delta=delta,
-                                     tolerance=tolerance, statics=statics,
-                                     grouped_backend=grouped_backend,
-                                     component_mask=component_mask)
-    return _best_of_compacted(
-        states, run, max_iterations=int(statics['max_iterations']),
-        restart_chunk=restart_chunk, round_iterations=round_iterations,
-        groups=groups)
+def _best_of_restarts(iterate, cost0, states, *, tolerance, criterion,
+                      max_iterations, restart_chunk, compact_iterations,
+                      screen_iterations, screen_keep, screen_margin,
+                      groups=None):
+    """The best restart of a population, from its initial ``states`` (a
+    tuple of tensors, the restart axis first; not modified), under a
+    family's ``iterate`` and ``cost0`` (``sharded_aa._aa_iterate`` or
+    ``_gpnh_iterate`` on a :class:`sharded_aa._Shard` of one device).
 
+    ``screen_iterations`` runs the screened scheduler
+    (:func:`_screened_best`); otherwise :func:`_compacted_best` runs in
+    rounds of ``compact_iterations``, or of :data:`_ROUND` for the
+    one-shot default (None).  An integer ``compact_iterations`` with
+    ``screen_iterations`` raises ``ValueError``, as in the JAX package.
+    ``groups`` (a mesh's :class:`_RestartGroups`) splits the restarts
+    over the mesh's restart groups.
 
-@apply_matmul_precision
-def _screened_aa_best(X, states, delta, tolerance, *, statics,
-                      grouped_backend, restart_chunk, screen_iterations,
-                      screen_keep, screen_margin=None, gram=None,
-                      component_mask=None, groups=None):
-    """Screened multi-restart AA (:func:`_screened_best`) from given
-    initial states ``(Zs, Cs, alphas)``, both phases on the round runner
-    of :func:`_compacted_aa_best`.  Returns ``(best, costs, n_iters,
-    screen)``."""
-    run = _make_aa_grouped_round_run(X, gram, delta=delta,
-                                     tolerance=tolerance, statics=statics,
-                                     grouped_backend=grouped_backend,
-                                     component_mask=component_mask)
-    return _screened_best(
-        states, run, max_iterations=int(statics['max_iterations']),
-        screen_iterations=screen_iterations, restart_chunk=restart_chunk,
-        screen_keep=screen_keep, screen_margin=screen_margin,
-        groups=groups)
-
-
-def _reject_unported(grouped):
-    if grouped is not None and not grouped:
-        raise ValueError("grouped=False selects the vmapped per-restart "
-                         "path, which is not ported (ROADMAP.md queue 1, "
-                         "item 18); the grouped runners are the only "
-                         "restart structure")
-
-
-def _check_restart_mesh(mesh, restart_axis):
-    """A restart-sharded fit's ``mesh``: None, or a DeviceMesh with the
-    axis ``restart_axis`` (any other axis replicates the work); anything
-    else raises ``ValueError`` naming ``mesh``."""
-    if mesh is None:
-        return
-    require_device_mesh(mesh)
-    if restart_axis not in (mesh.mesh_dim_names or ()):
-        raise ValueError("mesh has no restart axis %r; got axis_names=%r"
-                         % (restart_axis, tuple(mesh.mesh_dim_names)))
-
-
-def _restart_groups(mesh, restart_axis):
-    return None if mesh is None else _RestartGroups(mesh, restart_axis)
-
-
-def _validate_compaction(compact_iterations, screen_iterations):
-    """Compaction and screening are two schedulers: an integer
-    ``compact_iterations`` with ``screen_iterations`` raises, as in the
-    JAX package.  (``compact_iterations=None``, the default, runs rounds
-    of :data:`_ONE_SHOT_ROUND` and goes with screening.)"""
+    Returns ``(best, costs, n_iters, screen)``: ``best = (*state,
+    trace, cost, n_iter)`` of the winner, ``costs`` and ``n_iters``
+    numpy arrays over all restarts, ``screen`` the screen's diagnostics
+    (None unless screened)."""
     if compact_iterations is not None and screen_iterations is not None:
         raise ValueError("compact_iterations and screen_iterations "
                          "are mutually exclusive (compaction is the "
                          "exact-protocol scheduler, screening the "
                          "pruning heuristic)")
+    run = _round_run(iterate, cost0, tolerance=tolerance,
+                     criterion=criterion)
+    schedule = dict(max_iterations=int(max_iterations),
+                    restart_chunk=restart_chunk, groups=groups)
+    if screen_iterations is not None:
+        return _screened_best(
+            states, run, screen_iterations=int(screen_iterations),
+            screen_keep=float(screen_keep), screen_margin=screen_margin,
+            **schedule)
+    best, costs, n_iters = _best_of_compacted(
+        states, run, round_iterations=(_ROUND if compact_iterations is None
+                                       else int(compact_iterations)),
+        **schedule)
+    return best, costs, n_iters, None
 
 
-def _check_fit_args(stopping_criterion, n_init, mesh, restart_axis, grouped,
-                    compact_iterations, screen_iterations):
-    _check_restart_mesh(mesh, restart_axis)
-    _reject_unported(grouped)
-    _validate_compaction(compact_iterations, screen_iterations)
+def _check_fit_args(init, stopping_criterion, n_init, mesh, restart_axis,
+                    grouped):
+    """The public entries' argument checks, each raising ``ValueError``:
+    ``mesh`` None or a DeviceMesh with the axis ``restart_axis`` (any
+    other axis replicates the work), ``grouped`` None or True, ``init``,
+    the stopping criterion and ``n_init``."""
+    if mesh is not None:
+        require_device_mesh(mesh)
+        if restart_axis not in (mesh.mesh_dim_names or ()):
+            raise ValueError("mesh has no restart axis %r; got "
+                             "axis_names=%r"
+                             % (restart_axis, tuple(mesh.mesh_dim_names)))
+    if grouped is not None and not grouped:
+        raise ValueError("grouped=False selects the vmapped per-restart "
+                         "path, which is not ported (ROADMAP.md queue 1, "
+                         "item 18); the grouped runners are the only "
+                         "restart structure")
+    if init not in ('random', 'furthest_sum'):
+        raise ValueError("init must be 'random' or 'furthest_sum', got %r"
+                         % (init,))
     if stopping_criterion not in STOPPING_CRITERIA:
         raise ValueError("unsupported stopping criterion %r"
                          % (stopping_criterion,))
@@ -596,48 +507,38 @@ def _check_fit_args(stopping_criterion, n_init, mesh, restart_axis, grouped,
         raise ValueError("n_init must be >= 1, got %r" % (n_init,))
 
 
-def _round_iterations(compact_iterations):
-    """The compaction round: ``compact_iterations``, or
-    :data:`_ONE_SHOT_ROUND` for the one-shot default (None)."""
-    if compact_iterations is None:
-        return _ONE_SHOT_ROUND
-    return int(compact_iterations)
+def _restart_groups(mesh, restart_axis):
+    return None if mesh is None else _RestartGroups(mesh, restart_axis)
 
 
-def _schedule(compacted, screened, *, compact_iterations,
-              screen_iterations, screen_keep, screen_margin):
-    """Run the scheduler the arguments select: ``screened(**kw)`` with
-    ``screen_iterations``, else ``compacted(round_iterations=...)``.
-    Returns ``(best, costs, n_iters, screen)``, ``screen`` None unless
-    screened."""
-    if screen_iterations is not None:
-        return screened(screen_iterations=int(screen_iterations),
-                        screen_keep=float(screen_keep),
-                        screen_margin=screen_margin)
-    best, costs, n_iters = compacted(
-        round_iterations=_round_iterations(compact_iterations))
-    return best, costs, n_iters, None
+def _result(best, costs, n_iters, screen):
+    """The result dict's keys of every family, from
+    :func:`_best_of_restarts`: the winner's ``cost``, ``n_iter`` and
+    ``cost_deltas``, and ``costs``, ``n_iters`` and ``best_index`` over
+    all restarts, and ``screen`` when screened."""
+    trace, cost, n_iter = best[-3:]
+    out = {'cost': cost, 'n_iter': n_iter,
+           'cost_deltas': np.asarray(trace)[:n_iter], 'costs': costs,
+           'n_iters': n_iters, 'best_index': int(np.argmin(costs))}
+    if screen is not None:
+        out['screen'] = screen
+    return out
 
 
 def _aa_restarts(X, gram, n_components, generator, n_init, *, has_data,
                  delta, init, tolerance, max_iterations, n_extra_steps,
                  stopping_criterion, dictionary_solver_kwargs,
                  weights_solver_kwargs, scale_factors_solver_kwargs,
-                 restart_chunk, pad_components_to, screen_iterations,
-                 screen_keep, screen_margin, compact_iterations, mesh,
-                 restart_axis):
+                 pad_components_to, mesh, restart_axis, **schedule):
     """The fit of :func:`aa_fit_restarts` (``has_data``: ``X`` is the
     data, ``gram`` its Gram) and :func:`kernel_aa_fit_restarts` (both
-    the kernel).  Returns ``(Z, C, alpha, out)``: the winner's factors
-    sliced back to ``n_components`` and the result dict's scalars and
-    per-restart arrays."""
+    the kernel); ``schedule`` the scheduler arguments of
+    :func:`_best_of_restarts`.  Returns ``(Z, C, alpha, out)``: the
+    winner's factors sliced back to ``n_components`` and the keys of
+    :func:`_result`."""
     generator = _generator_on(generator, X.device, mesh=mesh)
     k_out = int(n_components)
     k_fit, component_mask = _padded_components(k_out, pad_components_to)
-
-    dict_cfg = make_config(SPGSolverConfig, dictionary_solver_kwargs)
-    weights_cfg = make_config(QPSolverConfig, weights_solver_kwargs)
-    scale_cfg = make_config(SPGSolverConfig, scale_factors_solver_kwargs)
     do_scale = float(delta) != 0.0
 
     diss = dissimilarities_from_kernel(gram) if init == 'furthest_sum' \
@@ -648,39 +549,24 @@ def _aa_restarts(X, gram, n_components, generator, n_init, *, has_data,
         n_extra_steps=int(n_extra_steps), do_scale=do_scale,
         dtype=gram.dtype, device=gram.device,
         component_mask=component_mask)
-    statics = dict(max_iterations=int(max_iterations),
-                   criterion=stopping_criterion, do_scale=do_scale,
-                   has_data=has_data, dict_cfg=dict_cfg,
-                   weights_cfg=weights_cfg, scale_cfg=scale_cfg)
-    grouped_backend = resolve_qp_backend(
-        weights_cfg.backend, k=k_fit, regime='sharded_fit',
-        device=X.device)
-    common = dict(statics=statics, grouped_backend=grouped_backend,
-                  restart_chunk=restart_chunk, gram=gram,
-                  component_mask=component_mask,
-                  groups=_restart_groups(mesh, restart_axis))
-    args = (X, states, float(delta), float(tolerance))
-    best, costs, n_iters, screen = _schedule(
-        lambda **kw: _compacted_aa_best(*args, **common, **kw),
-        lambda **kw: _screened_aa_best(*args, **common, **kw),
-        compact_iterations=compact_iterations,
-        screen_iterations=screen_iterations, screen_keep=screen_keep,
-        screen_margin=screen_margin)
+    iterate, cost0 = _aa_iterate(
+        X if has_data else None, gram, n_components=k_fit,
+        delta=float(delta), do_scale=do_scale, sh=_Shard(device=X.device),
+        dictionary_solver_kwargs=dictionary_solver_kwargs,
+        weights_solver_kwargs=weights_solver_kwargs,
+        scale_factors_solver_kwargs=scale_factors_solver_kwargs,
+        trace_K=(None if has_data
+                 else torch.trace(gram).to(_scalar_dtype(gram.dtype))),
+        component_mask=component_mask)
+    best, costs, n_iters, screen = _best_of_restarts(
+        iterate, cost0, states, tolerance=float(tolerance),
+        criterion=stopping_criterion, max_iterations=max_iterations,
+        groups=_restart_groups(mesh, restart_axis), **schedule)
 
-    Z, C, alpha, trace, best_cost, n_iter_best = best
+    Z, C, alpha = best[:3]
     if component_mask is not None:
         Z, C, alpha = Z[:, :k_out], C[:k_out], alpha[:k_out]
-    out = {
-        'cost': best_cost,
-        'n_iter': n_iter_best,
-        'cost_deltas': np.asarray(trace)[:n_iter_best],
-        'costs': costs,
-        'n_iters': n_iters,
-        'best_index': int(np.argmin(costs)),
-    }
-    if screen is not None:
-        out['screen'] = screen
-    return Z, C, alpha, out
+    return Z, C, alpha, _result(best, costs, n_iters, screen)
 
 
 @apply_matmul_precision
@@ -712,15 +598,17 @@ def aa_fit_restarts(data, n_components, generator, n_init, delta=0.0,
     (:func:`_compacted_best`): rounds of ``compact_iterations``
     iterations over chunks of ``restart_chunk`` restarts (all at once
     when None).  The default ``compact_iterations=None`` stands for the
-    JAX package's one-shot runner and runs rounds of
-    :data:`_ONE_SHOT_ROUND`; every restart follows the same trajectory
-    whatever the round and chunk, so the results are that runner's.
-    ``weights_solver_kwargs['backend']`` 'auto' resolves
-    with the JAX package's grouped-fit rule: the kernels on a CUDA
-    device (k <= 128), the row solver on the CPU.  Where the weights do
-    not run on the kernels (the CPU, ``backend='xla'``), the JAX package
-    falls back to its vmapped per-restart path under ``grouped=None``;
-    the port keeps the grouped structure with the row solver.
+    JAX package's one-shot runner and runs rounds of :data:`_ROUND`;
+    every restart follows the same trajectory whatever the round and
+    chunk, so the results are that runner's.
+    ``weights_solver_kwargs['backend']`` 'auto' resolves with the JAX
+    package's grouped-fit rule: the kernels on a CUDA device (k <= 128),
+    the row solver on the CPU; another backend than 'xla', 'pallas' and
+    'auto' raises ``ValueError`` before the first iteration.  Where the
+    weights do not run on the kernels (the CPU, ``backend='xla'``), the
+    JAX package falls back to its vmapped per-restart path under
+    ``grouped=None``; the port keeps the grouped structure with the row
+    solver.
 
     ``screen_iterations`` runs screened restarts (:func:`_screened_best`):
     every restart runs that many iterations at most, the best
@@ -760,11 +648,8 @@ def aa_fit_restarts(data, n_components, generator, n_init, delta=0.0,
     ``cost_deltas``, and ``costs``, ``n_iters`` and ``best_index`` over
     all restarts (numpy), and ``screen`` when screened.
     """
-    _check_fit_args(stopping_criterion, n_init, mesh, restart_axis,
-                    grouped, compact_iterations, screen_iterations)
-    if init not in ('random', 'furthest_sum'):
-        raise ValueError("init must be 'random' or 'furthest_sum', got %r"
-                         % (init,))
+    _check_fit_args(init, stopping_criterion, n_init, mesh, restart_axis,
+                    grouped)
 
     with span("cdr.fit"):
         X = as_input(data, _fit_device(mesh, device))
@@ -818,11 +703,8 @@ def kernel_aa_fit_restarts(kernel, n_components, generator, n_init,
     ``dictionary`` is ``C`` itself, not ``diag(alpha) C`` as in
     :func:`aa_fit_restarts` (as in the JAX package).
     """
-    _check_fit_args(stopping_criterion, n_init, mesh, restart_axis,
-                    grouped, compact_iterations, screen_iterations)
-    if init not in ('random', 'furthest_sum'):
-        raise ValueError("init must be 'random' or 'furthest_sum', got %r"
-                         % (init,))
+    _check_fit_args(init, stopping_criterion, n_init, mesh, restart_axis,
+                    grouped)
 
     with span("cdr.fit"):
         K = as_input(kernel, _fit_device(mesh, device))
@@ -894,79 +776,6 @@ def _init_gpnh_state(generator, X, diss, n_init, *, n_components, init,
     return Z, W
 
 
-def _gpnh_grouped_iterate(X, *, lambda_W, weights_backend, weights_kwargs,
-                          n_components, component_mask=None):
-    """Restart-batched GPNH iterate on one device, with the weights QP
-    grouped across restarts: ``sharded_aa._gpnh_iterate`` with no mesh
-    (the exact k x k dictionary solves, one grouped weights call, the
-    trace-form cost in float64).  ``component_mask`` runs a padded fit.
-
-    Returns ``(iterate, cost0)``: ``iterate(Zs, Ws) -> (Zs, Ws, costs)``
-    and ``cost0(Zs, Ws)``, the initial costs.
-    """
-    return _gpnh_iterate(
-        X, lambda_W=lambda_W, weights_backend=weights_backend,
-        weights_kwargs=weights_kwargs, n_components=n_components,
-        sh=_Shard(device=X.device), component_mask=component_mask)
-
-
-def _gpnh_parts(X, lambda_W, statics, grouped_backend, component_mask=None):
-    """``(iterate, cost0)`` of :func:`_gpnh_grouped_iterate` for a fit's
-    ``statics`` (``max_iterations``, ``criterion``, ``weights_cfg``,
-    ``n_components``)."""
-    return _gpnh_grouped_iterate(
-        X, lambda_W=lambda_W, weights_backend=grouped_backend,
-        weights_kwargs=statics['weights_cfg'].kwargs(),
-        n_components=statics['n_components'],
-        component_mask=component_mask)
-
-
-def _make_gpnh_grouped_round_run(X, *, lambda_W, tolerance, statics,
-                                 grouped_backend, component_mask=None):
-    """One bounded compaction round of grouped GPNH restarts
-    (:func:`_round_run`; the population is ``(Z_all, W_all)``)."""
-    iterate, cost0 = _gpnh_parts(X, lambda_W, statics, grouped_backend,
-                                 component_mask)
-    return _round_run(iterate, cost0, tolerance=tolerance,
-                      criterion=statics['criterion'])
-
-
-@apply_matmul_precision
-def _compacted_gpnh_best(X, states, lambda_W, tolerance, *, statics,
-                         grouped_backend, restart_chunk, round_iterations,
-                         component_mask=None, groups=None):
-    """Multi-restart GPNH with convergence compaction, from given
-    initial states ``(Zs, Ws)`` (not modified; see
-    :func:`_compacted_best`).  Returns ``(best, costs, n_iters)`` with
-    ``best = (Z, W, trace, best_cost, best_n_iter)``."""
-    run = _make_gpnh_grouped_round_run(
-        X, lambda_W=lambda_W, tolerance=tolerance, statics=statics,
-        grouped_backend=grouped_backend, component_mask=component_mask)
-    return _best_of_compacted(
-        states, run, max_iterations=int(statics['max_iterations']),
-        restart_chunk=restart_chunk, round_iterations=round_iterations,
-        groups=groups)
-
-
-@apply_matmul_precision
-def _screened_gpnh_best(X, states, lambda_W, tolerance, *, statics,
-                        grouped_backend, restart_chunk, screen_iterations,
-                        screen_keep, screen_margin=None,
-                        component_mask=None, groups=None):
-    """Screened multi-restart GPNH (:func:`_screened_best`) from given
-    initial states ``(Zs, Ws)``, both phases on the round runner of
-    :func:`_compacted_gpnh_best`.  Returns ``(best, costs, n_iters,
-    screen)``."""
-    run = _make_gpnh_grouped_round_run(
-        X, lambda_W=lambda_W, tolerance=tolerance, statics=statics,
-        grouped_backend=grouped_backend, component_mask=component_mask)
-    return _screened_best(
-        states, run, max_iterations=int(statics['max_iterations']),
-        screen_iterations=screen_iterations, restart_chunk=restart_chunk,
-        screen_keep=screen_keep, screen_margin=screen_margin,
-        groups=groups)
-
-
 @apply_matmul_precision
 def gpnh_fit_restarts(data, n_components, generator, n_init, lambda_W=0.0,
                       init='random', tolerance=1e-6, max_iterations=500,
@@ -995,19 +804,14 @@ def gpnh_fit_restarts(data, n_components, generator, n_init, lambda_W=0.0,
     and ``costs``, ``n_iters`` and ``best_index`` over all restarts
     (numpy), and ``screen`` when screened.
     """
-    _check_fit_args(stopping_criterion, n_init, mesh, restart_axis,
-                    grouped, compact_iterations, screen_iterations)
-    if init not in ('random', 'furthest_sum'):
-        raise ValueError(
-            "gpnh_fit_restarts supports init='random' or "
-            "'furthest_sum' (the reference drivers' choices)")
+    _check_fit_args(init, stopping_criterion, n_init, mesh, restart_axis,
+                    grouped)
 
     with span("cdr.fit"):
         X = as_input(data, _fit_device(mesh, device))
         generator = _generator_on(generator, X.device, mesh=mesh)
         k_out = int(n_components)
         k_fit, component_mask = _padded_components(k_out, pad_components_to)
-        weights_cfg = make_config(QPSolverConfig, weights_solver_kwargs)
 
         diss = (dissimilarities_from_kernel(_gram_once(X))
                 if init == 'furthest_sum' else None)
@@ -1015,37 +819,22 @@ def gpnh_fit_restarts(data, n_components, generator, n_init, lambda_W=0.0,
                                   n_components=k_fit, init=init,
                                   n_extra_steps=int(n_extra_steps),
                                   component_mask=component_mask)
-        statics = dict(max_iterations=int(max_iterations),
-                       criterion=stopping_criterion, weights_cfg=weights_cfg,
-                       n_components=k_fit)
-        grouped_backend = resolve_qp_backend(weights_cfg.backend, k=k_fit,
-                                             regime='sharded_fit',
-                                             device=X.device)
-        common = dict(statics=statics, grouped_backend=grouped_backend,
-                      restart_chunk=restart_chunk,
-                      component_mask=component_mask,
-                      groups=_restart_groups(mesh, restart_axis))
-        args = (X, states, float(lambda_W), float(tolerance))
-        best, costs, n_iters, screen = _schedule(
-            lambda **kw: _compacted_gpnh_best(*args, **common, **kw),
-            lambda **kw: _screened_gpnh_best(*args, **common, **kw),
+        iterate, cost0 = _gpnh_iterate(
+            X, lambda_W=float(lambda_W), n_components=k_fit,
+            sh=_Shard(device=X.device),
+            weights_solver_kwargs=weights_solver_kwargs,
+            component_mask=component_mask)
+        best, costs, n_iters, screen = _best_of_restarts(
+            iterate, cost0, states, tolerance=float(tolerance),
+            criterion=stopping_criterion, max_iterations=max_iterations,
+            restart_chunk=restart_chunk,
             compact_iterations=compact_iterations,
             screen_iterations=screen_iterations, screen_keep=screen_keep,
-            screen_margin=screen_margin)
+            screen_margin=screen_margin,
+            groups=_restart_groups(mesh, restart_axis))
 
-        Z, W, trace, best_cost, n_iter_best = best
+        Z, W = best[:2]
         if component_mask is not None:
             Z, W = Z[:, :k_out], W[:, :k_out]
-        out = {
-            'weights': Z,
-            'dictionary': W,
-            'cost': best_cost,
-            'n_iter': n_iter_best,
-            'cost_deltas': np.asarray(trace)[:n_iter_best],
-            'costs': costs,
-            'n_iters': n_iters,
-            'best_index': int(np.argmin(costs)),
-        }
-        if screen is not None:
-            out['screen'] = screen
-        return out
+        return dict(weights=Z, dictionary=W,
+                    **_result(best, costs, n_iters, screen))

@@ -57,9 +57,12 @@ from .mesh import (_all_gather, _all_true, _axis, _block, _broadcast,
 __all__ = ["distributed_gram", "sharded_aa_train_step", "sharded_aa_fit",
            "sharded_kernel_aa_fit", "sharded_gpnh_fit"]
 
-#: Iterations between two host reads of "is every restart done" in the
-#: sharded keep-best loop (agreed over the sample group).  A frozen
-#: restart does not change, so the read moves no result.
+#: Iterations between two host reads of a restart loop: of "is every
+#: restart done" in the sharded keep-best loop (agreed over the sample
+#: group), and the round of the single-device restart runners
+#: (parallel/restarts.py) under ``compact_iterations=None`` and in both
+#: phases of a screened fit.  A frozen restart does not change, so the
+#: read moves no result.
 _ROUND = 32
 
 
@@ -192,18 +195,29 @@ class _Shard:
         return t if dtype is None else t.to(dtype)
 
 
-def _weights_backend_kwargs(weights_solver_kwargs, k, device):
-    """The weights-QP backend of the sharded fits and its kwargs:
-    'auto' resolves with grouped-fit semantics (the kernels on a CUDA
-    device, k <= 128; the row solver elsewhere)."""
-    cfg = make_config(QPSolverConfig, weights_solver_kwargs)
-    if cfg.backend not in ('xla', 'pallas', 'auto'):
+def _solver_kwargs(k, device, dictionary_solver_kwargs=None,
+                   weights_solver_kwargs=None,
+                   scale_factors_solver_kwargs=None):
+    """The iterates' solver arguments from a fit's public settings (each
+    a dict, a config or None for the defaults): the dictionary and
+    scale-factor SPGs' as :func:`quad_spg` arguments, and the weights
+    QP's backend and arguments, 'auto' resolved with grouped-fit
+    semantics at ``k`` on ``device`` (the kernels on a CUDA device, k <=
+    128; the row solver elsewhere).  An unknown backend raises
+    ``ValueError`` here, before any iteration.  Returns ``(dict_kwargs,
+    weights_backend, weights_kwargs, scale_kwargs)``."""
+    weights = make_config(QPSolverConfig, weights_solver_kwargs)
+    if weights.backend not in ('xla', 'pallas', 'auto'):
         raise ValueError(
             "unknown weights-QP backend %r; use 'xla', 'pallas' or "
-            "'auto'" % (cfg.backend,))
-    backend = resolve_qp_backend(cfg.backend, k=k, regime='sharded_fit',
-                                 device=device)
-    return backend, cfg.kwargs()
+            "'auto'" % (weights.backend,))
+    return (_spg_cfg_to_quad_kwargs(
+                make_config(SPGSolverConfig, dictionary_solver_kwargs)),
+            resolve_qp_backend(weights.backend, k=k, regime='sharded_fit',
+                               device=device),
+            weights.kwargs(),
+            _spg_cfg_to_quad_kwargs(
+                make_config(SPGSolverConfig, scale_factors_solver_kwargs)))
 
 
 @apply_matmul_precision
@@ -292,16 +306,21 @@ def _aa_iter_cost(X_loc, Z_loc, C, alpha, CK, CKCt, trace_K, sh):
         return _cost_from_parts(trace_K, CKZ, ZtZ, CKCt, alpha, n_samples)
 
 
-def _aa_iterate(X_loc, K_loc, *, delta, do_scale, dict_kwargs,
-                weights_backend, weights_kwargs, scale_kwargs, sh,
-                trace_K=None, component_mask=None):
+def _aa_iterate(X_loc, K_loc, *, n_components, delta, do_scale, sh,
+                dictionary_solver_kwargs=None, weights_solver_kwargs=None,
+                scale_factors_solver_kwargs=None, trace_K=None,
+                component_mask=None):
     """The restart-batched AA iterate, on a mesh or (``sh`` without one)
     on one device: the scale and dictionary updates of every restart,
     then all their weights QPs in one
     :func:`quad_simplex_spg_batch_grouped` call on the rank's rows, then
-    the costs.  ``component_mask`` (a padded fit) goes only to the
-    weights QP, which pins the padded columns of ``Z`` to 0; the padded
-    rows of ``C`` then get a zero gradient and do not reach the cost.
+    the costs.  The solvers run with a fit's public settings, resolved
+    by :func:`_solver_kwargs` at ``n_components``.  ``X_loc`` (the
+    rank's data rows, or None) selects the residual-form cost, else the
+    kernel trace form from ``trace_K`` on the kernel rows ``K_loc``.
+    ``component_mask`` (a padded fit) goes only to the weights QP, which
+    pins the padded columns of ``Z`` to 0; the padded rows of ``C`` then
+    get a zero gradient and do not reach the cost.
 
     Returns ``(iterate, cost0)``: ``iterate(Zs, Cs, alphas) -> (Zs, Cs,
     alphas, costs)`` for :func:`_keep_best_loop`, and ``cost0(Zs, Cs,
@@ -312,8 +331,12 @@ def _aa_iterate(X_loc, K_loc, *, delta, do_scale, dict_kwargs,
     cadence (the dictionary's, with ``do_scale`` the scale factors',
     and the weights' on the row solver); otherwise an iteration may be
     captured as a CUDA graph (``iterate_graph``)."""
+    dict_kwargs, weights_backend, weights_kwargs, scale_kwargs = \
+        _solver_kwargs(n_components, sh.device, dictionary_solver_kwargs,
+                       weights_solver_kwargs, scale_factors_solver_kwargs)
     if X_loc is not None:
         X_loc = X_loc.contiguous()  # K5's operand; once, not an iteration
+
     def iterate(Zs, Cs, alphas):
         Cs, alphas, As, Bws, CKs, CKCts = _aa_pre_weights(
             K_loc, Zs, Cs, alphas, delta=delta, do_scale=do_scale,
@@ -342,16 +365,17 @@ def _aa_iterate(X_loc, K_loc, *, delta, do_scale, dict_kwargs,
     return iterate, cost0
 
 
-def _gpnh_iterate(X_loc, *, lambda_W, weights_backend, weights_kwargs,
-                  n_components, sh, component_mask=None):
+def _gpnh_iterate(X_loc, *, lambda_W, n_components, sh,
+                  weights_solver_kwargs=None, component_mask=None):
     """The restart-batched GPNH iterate, on a mesh or (``sh`` without
     one) on one device: the exact k x k dictionary solve of every
     restart (``(Z'Z/n + lambda_W G_W) W' = Z'X/n`` on all-reduced
     ``Z'Z`` and ``Z'X``, one batched SVD, run replicated and taken from
     the sample group's first rank), then the weights QPs of all restarts
     in one :func:`quad_simplex_spg_batch_grouped` call on the rank's
-    rows, then the trace-form cost in float64 from all-reduced parts.
-    ``lambda_W`` is a number.
+    rows (the fit's ``weights_solver_kwargs`` resolved by
+    :func:`_solver_kwargs`), then the trace-form cost in float64 from
+    all-reduced parts.  ``lambda_W`` is a number.
 
     ``component_mask`` runs a padded fit: the masked GPNH Gram and
     penalty (active-k prefactor over the active columns), the padded
@@ -366,6 +390,8 @@ def _gpnh_iterate(X_loc, *, lambda_W, weights_backend, weights_kwargs,
     ``iterate.reads_host`` is always true: the dictionary solve's SVD
     waits on the host.
     """
+    _, weights_backend, weights_kwargs, _ = _solver_kwargs(
+        n_components, sh.device, weights_solver_kwargs=weights_solver_kwargs)
     n_loc, n_features = X_loc.shape
     n_samples = n_loc * sh.n_sample_shards
     sdt = _GPNH_SDT
@@ -468,18 +494,6 @@ def _fit_outputs(Z_loc_best, sh, best, extra, n_valid):
     return out
 
 
-def _aa_solver_kwargs(dictionary_solver_kwargs, weights_solver_kwargs,
-                      scale_factors_solver_kwargs, k, device):
-    dict_kwargs = _spg_cfg_to_quad_kwargs(
-        make_config(SPGSolverConfig, dictionary_solver_kwargs))
-    weights_backend, weights_kwargs = _weights_backend_kwargs(
-        weights_solver_kwargs, k, device)
-    scale_kwargs = _spg_cfg_to_quad_kwargs(
-        make_config(SPGSolverConfig, scale_factors_solver_kwargs))
-    return dict(dict_kwargs=dict_kwargs, weights_backend=weights_backend,
-                weights_kwargs=weights_kwargs, scale_kwargs=scale_kwargs)
-
-
 def _local_states(sh, Zs, Cs, alphas, dtype, n):
     """This rank's block of restarts, with its rows of ``Zs``."""
     R = int(np.shape(Zs)[0])
@@ -501,9 +515,6 @@ def _sharded_aa(mesh, data, Zs, Cs, alphas, *, has_data, delta, tolerance,
     R, states = _local_states(sh, Zs, Cs, alphas, D.dtype, n)
     n_valid = R if n_valid_restarts is None else int(n_valid_restarts)
     do_scale = float(delta) != 0.0
-    kw = _aa_solver_kwargs(dictionary_solver_kwargs, weights_solver_kwargs,
-                           scale_factors_solver_kwargs, states[0].shape[-1],
-                           sh.device)
     rows = sh.rows(n)
     D_loc = D[rows]
     if has_data:
@@ -512,9 +523,13 @@ def _sharded_aa(mesh, data, Zs, Cs, alphas, *, has_data, delta, tolerance,
         X_loc, K_loc = None, D_loc
         trace_K = sh.psum(torch.trace(D_loc[:, rows]))
 
-    iterate, cost0 = _aa_iterate(X_loc, K_loc, delta=float(delta),
-                                 do_scale=do_scale, sh=sh, trace_K=trace_K,
-                                 **kw)
+    iterate, cost0 = _aa_iterate(
+        X_loc, K_loc, n_components=states[0].shape[-1], delta=float(delta),
+        do_scale=do_scale, sh=sh,
+        dictionary_solver_kwargs=dictionary_solver_kwargs,
+        weights_solver_kwargs=weights_solver_kwargs,
+        scale_factors_solver_kwargs=scale_factors_solver_kwargs,
+        trace_K=trace_K)
     states, costs, trace, n_iters, _ = _keep_best_loop(
         states, cost0(*states), iterate, tolerance=tolerance,
         criterion=stopping_criterion, max_iterations=int(max_iterations),
@@ -553,17 +568,13 @@ def sharded_aa_train_step(mesh, X, Zs, Cs, alphas, *, delta=0.0,
     X = sh.take(X)
     n = X.shape[0]
     _, states = _local_states(sh, Zs, Cs, alphas, X.dtype, n)
-    backend = resolve_qp_backend(weights_backend, k=states[0].shape[-1],
-                                 regime='sharded_fit', device=sh.device)
     X_loc = X[sh.rows(n)]
     iterate, _ = _aa_iterate(
-        X_loc, X_loc @ X.T, delta=float(delta), do_scale=do_scale,
-        dict_kwargs=_spg_cfg_to_quad_kwargs(
-            SPGSolverConfig(max_iterations=dict_iterations)),
-        weights_backend=backend,
-        weights_kwargs=QPSolverConfig(
-            max_iterations=weights_iterations).kwargs(),
-        scale_kwargs=_spg_cfg_to_quad_kwargs(SPGSolverConfig()), sh=sh)
+        X_loc, X_loc @ X.T, n_components=states[0].shape[-1],
+        delta=float(delta), do_scale=do_scale, sh=sh,
+        dictionary_solver_kwargs={'max_iterations': dict_iterations},
+        weights_solver_kwargs={'backend': weights_backend,
+                               'max_iterations': weights_iterations})
     Z_loc, C, alpha, costs = iterate(*states)
 
     def whole(t):
@@ -660,12 +671,9 @@ def sharded_gpnh_fit(mesh, X, Zs, Ws, *, lambda_W=0.0, tolerance=1e-6,
     Zs = sh.take(Zs, X.dtype)[blk][:, sh.rows(n)].contiguous()
     Ws = sh.take(Ws, X.dtype)[blk].contiguous()
     n_valid = R if n_valid_restarts is None else int(n_valid_restarts)
-    k = Zs.shape[-1]
-    backend, weights_kwargs = _weights_backend_kwargs(
-        weights_solver_kwargs, k, sh.device)
     iterate, cost0 = _gpnh_iterate(
-        X[sh.rows(n)], lambda_W=lambda_W, weights_backend=backend,
-        weights_kwargs=weights_kwargs, n_components=k, sh=sh)
+        X[sh.rows(n)], lambda_W=lambda_W, n_components=Zs.shape[-1],
+        sh=sh, weights_solver_kwargs=weights_solver_kwargs)
     states, costs, trace, n_iters, _ = _keep_best_loop(
         (Zs, Ws), cost0(Zs, Ws), iterate, tolerance=tolerance,
         criterion=stopping_criterion, max_iterations=int(max_iterations),

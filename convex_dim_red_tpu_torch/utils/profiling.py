@@ -110,21 +110,18 @@ def to_device(data, device):
 
 
 def counters():
-    """A snapshot of the port's counters: the six of this module, the
-    QP kernels' launch counts (``ops/simplex_qp``) and K5's
-    (``ops/residual_cost.LAUNCHES`` as ``COST_LAUNCHES``), by name."""
-    from ..ops import residual_cost, simplex_qp
-    return {"RESTART_SLOTS": RESTART_SLOTS,
+    """A snapshot of the port's counters: the six of this module and the
+    kernels' launch counts (``ops.LAUNCH_COUNTERS``), by name."""
+    from ..ops import LAUNCH_COUNTERS
+    snap = {"RESTART_SLOTS": RESTART_SLOTS,
             "RESTART_ADVANCES": RESTART_ADVANCES,
             "HOST_READS": HOST_READS,
             "H2D_BYTES": H2D_BYTES,
             "GRAPH_CAPTURES": GRAPH_CAPTURES,
-            "GRAPH_REPLAYS": GRAPH_REPLAYS,
-            "LAUNCHES": simplex_qp.LAUNCHES,
-            "PACKED_LAUNCHES": simplex_qp.PACKED_LAUNCHES,
-            "GROUPED_LAUNCHES": simplex_qp.GROUPED_LAUNCHES,
-            "UNPACKED_LAUNCHES": simplex_qp.UNPACKED_LAUNCHES,
-            "COST_LAUNCHES": residual_cost.LAUNCHES}
+            "GRAPH_REPLAYS": GRAPH_REPLAYS}
+    snap.update((name, getattr(module, attribute))
+                for module, attribute, name in LAUNCH_COUNTERS)
+    return snap
 
 
 #: The prefix of the program's span names.

@@ -547,16 +547,7 @@ def test_padded_aa_fit_on_card_matches_cpu(cuda, scheduler):
     late in these fits (33-45 iterations): a pruned restart reports a
     mid-trajectory cost, which rounding moves by 1e-5 at 20
     iterations."""
-    from convex_dim_red_tpu_torch.models import _common
-    from convex_dim_red_tpu_torch.parallel import restarts
-    statics = dict(
-        max_iterations=200, criterion='rel_delta_f', do_scale=False,
-        has_data=True,
-        dict_cfg=_common.make_config(_common.SPGSolverConfig,
-                                     {'max_iterations': 1}),
-        weights_cfg=_common.make_config(_common.QPSolverConfig,
-                                        {'max_iterations': 25}),
-        scale_cfg=_common.SPGSolverConfig())
+    from convex_dim_red_tpu_torch.parallel import restarts, sharded_aa
     _, mask = restarts._padded_components(6, 8)
     res = {}
     for label, device in (("card", cuda), ("cpu", "cpu")):
@@ -573,15 +564,22 @@ def test_padded_aa_fit_on_card_matches_cpu(cuda, scheduler):
         a_pad = torch.ones((8, 8), dtype=alpha.dtype, device=device)
         for name, states, m in (("unpadded", (Z, C, alpha), None),
                                 ("padded", (Z_pad, C_pad, a_pad), mask)):
-            kw = dict(statics=statics, grouped_backend='pallas',
-                      restart_chunk=4, component_mask=m)
-            if scheduler == "compacted":
-                best, costs, n_iters = restarts._compacted_aa_best(
-                    X, states, 0.0, 1e-6, round_iterations=32, **kw)
-            else:
-                best, costs, n_iters, _ = restarts._screened_aa_best(
-                    X, states, 0.0, 1e-6, screen_iterations=36,
-                    screen_keep=0.5, **kw)
+            iterate, cost0 = sharded_aa._aa_iterate(
+                X, restarts._gram_once(X), n_components=states[0].shape[-1],
+                delta=0.0, do_scale=False,
+                sh=sharded_aa._Shard(device=device),
+                dictionary_solver_kwargs={'max_iterations': 1},
+                weights_solver_kwargs={'backend': 'pallas',
+                                       'max_iterations': 25},
+                component_mask=m)
+            screened = scheduler == "screened"
+            best, costs, n_iters, _ = restarts._best_of_restarts(
+                iterate, cost0, states, tolerance=1e-6,
+                criterion='rel_delta_f', max_iterations=200,
+                restart_chunk=4,
+                compact_iterations=None if screened else 32,
+                screen_iterations=36 if screened else None,
+                screen_keep=0.5, screen_margin=None)
             res[label, name] = (costs, n_iters, best[0])
     card, card_pad = res["card", "unpadded"], res["card", "padded"]
     np.testing.assert_allclose(card_pad[0], card[0], rtol=1e-10)

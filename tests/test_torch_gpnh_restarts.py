@@ -35,6 +35,7 @@ from convex_dim_red_tpu_torch.models.gpnh_convex_coding import (
     gpnh_regularization)
 from convex_dim_red_tpu_torch.ops import simplex_qp
 from convex_dim_red_tpu_torch.parallel import restarts as trestarts
+from convex_dim_red_tpu_torch.parallel import sharded_aa as tsharded
 from convex_dim_red_tpu_torch.utils.interop import gpnh_states_from_numpy
 from tests.torch_mesh_worlds import bad_mesh
 
@@ -154,9 +155,10 @@ def test_grouped_iterate_matches_jax(jax_pallas_interpret, lambda_W):
     want = [np.asarray(a) for a in iterate(Zs, Ws)]
     want0 = np.asarray(cost0(Zs, Ws))
 
-    t_iterate, t_cost0 = trestarts._gpnh_grouped_iterate(
-        torch.as_tensor(X), lambda_W=lambda_W, weights_backend='pallas',
-        weights_kwargs={'max_iterations': 25}, n_components=K)
+    t_iterate, t_cost0 = tsharded._gpnh_iterate(
+        torch.as_tensor(X), lambda_W=lambda_W, n_components=K,
+        sh=tsharded._Shard(device='cpu'),
+        weights_solver_kwargs={'backend': 'pallas', 'max_iterations': 25})
     states = gpnh_states_from_numpy(Zs, Ws, 'cpu', torch.float64)
     np.testing.assert_allclose(t_cost0(*states).numpy(), want0, rtol=1e-12)
     Z, W, costs = (t.numpy() for t in t_iterate(*states))

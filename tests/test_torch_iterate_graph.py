@@ -25,9 +25,10 @@ import pytest
 import torch
 
 from convex_dim_red_tpu_torch import aa_fit_restarts, kernel_aa_fit_restarts
-from convex_dim_red_tpu_torch.models._common import QPSolverConfig
-from convex_dim_red_tpu_torch.ops import residual_cost, simplex_qp
-from convex_dim_red_tpu_torch.parallel import iterate_graph, restarts
+from convex_dim_red_tpu_torch.ops import (LAUNCH_COUNTERS, residual_cost,
+                                          simplex_qp)
+from convex_dim_red_tpu_torch.parallel import (iterate_graph, restarts,
+                                               sharded_aa)
 from convex_dim_red_tpu_torch.parallel.sharded_aa import _keep_best_loop
 from convex_dim_red_tpu_torch.utils import profiling
 
@@ -43,21 +44,22 @@ def _aa_iterate(dict_cap=1, delta=0.0, scale_cap=1, has_data=True,
                 backend='pallas', weights_cap=25):
     X = _data()
     K = X @ X.T
-    iterate, _ = restarts._aa_grouped_iterate(
-        X, K, delta=delta, do_scale=delta != 0.0, has_data=has_data,
-        dict_kwargs={'max_iterations': dict_cap},
-        weights_backend=backend,
-        weights_kwargs=QPSolverConfig(max_iterations=weights_cap).kwargs(),
-        scale_kwargs={'max_iterations': scale_cap},
+    iterate, _ = sharded_aa._aa_iterate(
+        X if has_data else None, K, n_components=3, delta=delta,
+        do_scale=delta != 0.0, sh=sharded_aa._Shard(device='cpu'),
+        dictionary_solver_kwargs={'max_iterations': dict_cap},
+        weights_solver_kwargs={'backend': backend,
+                               'max_iterations': weights_cap},
+        scale_factors_solver_kwargs={'max_iterations': scale_cap},
         trace_K=None if has_data else torch.trace(K))
     return iterate
 
 
 def _gpnh_iterate():
-    iterate, _ = restarts._gpnh_grouped_iterate(
-        _data(), lambda_W=0.0, weights_backend='pallas',
-        weights_kwargs=QPSolverConfig(max_iterations=25).kwargs(),
-        n_components=3)
+    iterate, _ = sharded_aa._gpnh_iterate(
+        _data(), lambda_W=0.0, n_components=3,
+        sh=sharded_aa._Shard(device='cpu'),
+        weights_solver_kwargs={'backend': 'pallas', 'max_iterations': 25})
     return iterate
 
 
@@ -163,8 +165,7 @@ def test_host_read_raises_while_the_stream_captures(monkeypatch):
     assert profiling.HOST_READS == before + 1
 
 
-COUNTED = ("LAUNCHES", "PACKED_LAUNCHES", "GROUPED_LAUNCHES",
-           "UNPACKED_LAUNCHES", "COST_LAUNCHES")
+COUNTED = [name for _, _, name in LAUNCH_COUNTERS]
 
 
 class _Replays:
@@ -298,14 +299,11 @@ def test_each_chunk_shape_has_its_graph(stand_in, monkeypatch):
 def test_step_graphs_gather_into_and_copy_out_of_the_carried_tensors(
         stand_in):
     X = _data(n=20, d=5, seed=6)
-    iterate, cost0 = restarts._aa_grouped_parts(
-        X, 0.0, dict(has_data=True, do_scale=False,
-                     dict_cfg=restarts.make_config(
-                         restarts.SPGSolverConfig, {'max_iterations': 1}),
-                     weights_cfg=QPSolverConfig(backend='pallas',
-                                                max_iterations=25),
-                     scale_cfg=restarts.SPGSolverConfig()),
-        'pallas', None)
+    iterate, cost0 = sharded_aa._aa_iterate(
+        X, restarts._gram_once(X), n_components=3, delta=0.0,
+        do_scale=False, sh=sharded_aa._Shard(device='cpu'),
+        dictionary_solver_kwargs={'max_iterations': 1},
+        weights_solver_kwargs={'backend': 'pallas', 'max_iterations': 25})
     run = restarts._round_run(iterate, cost0, tolerance=1e-6,
                               criterion='rel_delta_f')
     states = restarts._init_aa_state(

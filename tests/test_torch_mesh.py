@@ -230,6 +230,35 @@ def test_train_step_matches_jax(out, want):
     np.testing.assert_allclose(got[0].sum(axis=2), 1.0, atol=1e-10)
 
 
+def test_train_step_and_restart_runner_build_the_same_iterate(out):
+    """From the same settings the train step (``dict_iterations``,
+    ``weights_iterations``, ``weights_backend``) and the restart runner
+    (the public solver dicts) hand the iterate arguments that resolve
+    alike, and the iterates built from them on one device read the host
+    alike (whether a CUDA graph may replay an iteration)."""
+    from convex_dim_red_tpu_torch.parallel import sharded_aa as tsharded
+    passed = out['train step']['iterate_kwargs']
+    step, runner = passed['train step'], passed['restart runner']
+
+    def resolved(kw):
+        return tsharded._solver_kwargs(
+            kw['n_components'], 'cpu', kw.get('dictionary_solver_kwargs'),
+            kw.get('weights_solver_kwargs'),
+            kw.get('scale_factors_solver_kwargs'))
+
+    def reads_host(kw):
+        Xt = torch.as_tensor(X)
+        iterate, _ = tsharded._aa_iterate(
+            Xt, Xt @ Xt.T, sh=tsharded._Shard(device='cpu'), **kw)
+        return iterate.reads_host
+
+    assert resolved(step) == resolved(runner)
+    assert resolved(step)[1] == 'xla'
+    assert (step['delta'], step['do_scale']) == (runner['delta'],
+                                                 runner['do_scale'])
+    assert reads_host(step) is reads_host(runner) is True
+
+
 FIT_LABELS = ('aa 1x2', 'aa 1x2 delta', 'kernel aa 1x2', 'gpnh 1x2')
 
 

@@ -35,7 +35,6 @@ from convex_dim_red_tpu.ops.pallas_qp import (
     quad_simplex_qp_pallas_packed_grouped)
 from convex_dim_red_tpu.parallel import restarts as jrestarts
 from convex_dim_red_tpu.solvers.spg import _pallas_qp_kwargs
-from convex_dim_red_tpu_torch.models import _common as tcommon
 from convex_dim_red_tpu_torch.parallel import restarts as trestarts
 from convex_dim_red_tpu_torch.parallel import sharded_aa as tsharded
 from convex_dim_red_tpu_torch.utils.interop import (gpnh_states_from_numpy,
@@ -199,15 +198,19 @@ def test_padded_gpnh_fit_matches_jax(jax_pallas_interpret, monkeypatch,
 ROW_SOLVER = {'backend': 'xla', 'max_iterations': 25}
 
 
-def _aa_statics():
-    return dict(
-        max_iterations=AA_FIT['max_iterations'],
-        criterion=AA_FIT['stopping_criterion'], do_scale=False,
-        has_data=True,
-        dict_cfg=tcommon.make_config(tcommon.SPGSolverConfig,
-                                     AA_FIT['dictionary_solver_kwargs']),
-        weights_cfg=tcommon.make_config(tcommon.QPSolverConfig, ROW_SOLVER),
-        scale_cfg=tcommon.SPGSolverConfig())
+def _best_of_restarts(iterate, cost0, states, fit, scheduler, *, rounds,
+                      screen):
+    """``trestarts._best_of_restarts`` at ``fit``'s tolerance, criterion
+    and cap over chunks of 4: compacted in rounds of ``rounds``
+    iterations, or screened for ``screen`` iterations keeping half."""
+    screened = scheduler == 'screened'
+    return trestarts._best_of_restarts(
+        iterate, cost0, states, tolerance=fit['tolerance'],
+        criterion=fit['stopping_criterion'],
+        max_iterations=fit['max_iterations'], restart_chunk=4,
+        compact_iterations=None if screened else rounds,
+        screen_iterations=screen if screened else None, screen_keep=0.5,
+        screen_margin=None)
 
 
 def _embed_aa(states, seed=1):
@@ -227,15 +230,13 @@ def _embed_aa(states, seed=1):
 
 
 def _run_aa(X, states, mask, scheduler):
-    kw = dict(statics=_aa_statics(), grouped_backend='xla',
-              restart_chunk=4, component_mask=mask)
-    if scheduler == 'compacted':
-        return (*trestarts._compacted_aa_best(
-            X, states, 0.0, AA_FIT['tolerance'], round_iterations=20,
-            **kw), None)
-    return trestarts._screened_aa_best(
-        X, states, 0.0, AA_FIT['tolerance'], screen_iterations=10,
-        screen_keep=0.5, **kw)
+    iterate, cost0 = tsharded._aa_iterate(
+        X, trestarts._gram_once(X), n_components=states[0].shape[-1],
+        delta=0.0, do_scale=False, sh=tsharded._Shard(device='cpu'),
+        dictionary_solver_kwargs=AA_FIT['dictionary_solver_kwargs'],
+        weights_solver_kwargs=ROW_SOLVER, component_mask=mask)
+    return _best_of_restarts(iterate, cost0, states, AA_FIT, scheduler,
+                             rounds=20, screen=10)
 
 
 @pytest.mark.parametrize("scheduler", sorted(SCHEDULERS))
@@ -278,15 +279,6 @@ def test_padded_aa_from_embedded_states_equals_unpadded(scheduler):
             screen_r['screen_cut'], rel=1e-10)
 
 
-def _gpnh_statics():
-    return dict(max_iterations=GPNH_FIT['max_iterations'],
-                criterion=GPNH_FIT['stopping_criterion'],
-                weights_cfg=tcommon.make_config(
-                    tcommon.QPSolverConfig, dict(ROW_SOLVER,
-                                                 max_iterations=200)),
-                n_components=None)
-
-
 @pytest.mark.parametrize("scheduler", sorted(SCHEDULERS))
 def test_padded_gpnh_from_embedded_states_equals_unpadded(scheduler):
     """As for AA, with the GPNH penalty on: the padded columns of both
@@ -313,16 +305,13 @@ def test_padded_gpnh_from_embedded_states_equals_unpadded(scheduler):
         return out
 
     def run(states, m, k):
-        statics = dict(_gpnh_statics(), n_components=k)
-        kw = dict(statics=statics, grouped_backend='xla',
-                  restart_chunk=4, component_mask=m)
-        if scheduler == 'compacted':
-            return (*trestarts._compacted_gpnh_best(
-                X, states, LAMBDA_W, GPNH_FIT['tolerance'],
-                round_iterations=16, **kw), None)
-        return trestarts._screened_gpnh_best(
-            X, states, LAMBDA_W, GPNH_FIT['tolerance'],
-            screen_iterations=8, screen_keep=0.5, **kw)
+        iterate, cost0 = tsharded._gpnh_iterate(
+            X, lambda_W=LAMBDA_W, n_components=k,
+            sh=tsharded._Shard(device='cpu'),
+            weights_solver_kwargs=dict(ROW_SOLVER, max_iterations=200),
+            component_mask=m)
+        return _best_of_restarts(iterate, cost0, states, GPNH_FIT,
+                                 scheduler, rounds=16, screen=8)
 
     best_r, costs_r, iters_r, _ = run((Z, W), None, K)
     with pytest.MonkeyPatch.context() as mp:

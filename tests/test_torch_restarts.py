@@ -37,9 +37,10 @@ from convex_dim_red_tpu.solvers.spg import _pallas_qp_kwargs
 from convex_dim_red_tpu.solvers.spg import (
     quad_simplex_spg_batch_grouped as j_quad_simplex_spg_batch_grouped)
 from convex_dim_red_tpu.solvers.spg import quad_spg as j_quad_spg
-from convex_dim_red_tpu_torch.models import _common as tcommon
 from convex_dim_red_tpu_torch.ops import simplex_qp
 from convex_dim_red_tpu_torch.parallel import restarts as trestarts
+from convex_dim_red_tpu_torch.parallel import sharded_aa as tsharded
+from convex_dim_red_tpu_torch.utils import profiling
 from convex_dim_red_tpu_torch.utils.interop import states_from_numpy
 from tests.torch_mesh_worlds import bad_mesh
 
@@ -97,17 +98,6 @@ def jax_pallas_interpret():
             runner.cache_clear()
 
 
-def _statics(max_iterations):
-    return dict(
-        max_iterations=max_iterations,
-        criterion=FIT['stopping_criterion'], do_scale=False,
-        has_data=True,
-        dict_cfg=tcommon.make_config(tcommon.SPGSolverConfig, DICT_KW),
-        weights_cfg=tcommon.make_config(tcommon.QPSolverConfig,
-                                        WEIGHTS_KW),
-        scale_cfg=tcommon.SPGSolverConfig())
-
-
 def _jax_init_states(key, delta):
     init = functools.partial(
         jrestarts._init_aa_state, n_samples=N, n_components=K,
@@ -134,10 +124,16 @@ def test_compacted_fit_matches_jax(jax_pallas_interpret, max_iterations):
     states = states_from_numpy(*_jax_init_states(key, 0.0),
                                device='cpu', dtype=torch.float64)
     before = simplex_qp.LAUNCHES
-    best, costs, n_iters = trestarts._compacted_aa_best(
-        torch.as_tensor(X), states, 0.0, FIT['tolerance'],
-        statics=_statics(max_iterations), grouped_backend='pallas',
-        restart_chunk=4, round_iterations=20)
+    Xt = torch.as_tensor(X)
+    iterate, cost0 = tsharded._aa_iterate(
+        Xt, trestarts._gram_once(Xt), n_components=K, delta=0.0,
+        do_scale=False, sh=tsharded._Shard(device='cpu'),
+        dictionary_solver_kwargs=DICT_KW, weights_solver_kwargs=WEIGHTS_KW)
+    best, costs, n_iters, _ = trestarts._best_of_restarts(
+        iterate, cost0, states, tolerance=FIT['tolerance'],
+        criterion=FIT['stopping_criterion'], max_iterations=max_iterations,
+        restart_chunk=4, compact_iterations=20, screen_iterations=None,
+        screen_keep=None, screen_margin=None)
     assert simplex_qp.LAUNCHES == before  # CPU: the plain version
     _assert_matches(best, costs, n_iters, want, max_iterations)
 
@@ -223,21 +219,23 @@ def test_grouped_iterate_matches_jax(jax_pallas_interpret, has_data,
     Kj = jnp.asarray(X @ X.T)
     dict_kw = j_spg_kwargs(jcommon.SPGSolverConfig(max_iterations=1))
     scale_kw = j_spg_kwargs(jcommon.SPGSolverConfig(max_iterations=50))
-    common = dict(delta=delta, do_scale=delta != 0.0, has_data=has_data,
-                  dict_kwargs=dict_kw, scale_kwargs=scale_kw,
-                  weights_backend='pallas')
     iterate, cost0 = jrestarts._aa_grouped_iterate(
-        jnp.asarray(X) if has_data else None, Kj,
+        jnp.asarray(X) if has_data else None, Kj, delta=delta,
+        do_scale=delta != 0.0, has_data=has_data, dict_kwargs=dict_kw,
+        scale_kwargs=scale_kw, weights_backend='pallas',
         weights_kwargs={'max_iterations': 25}, component_mask=None,
-        trace_K=None if has_data else jnp.trace(Kj), **common)
+        trace_K=None if has_data else jnp.trace(Kj))
     want = [np.asarray(a) for a in iterate(Zs, Cs, alphas)]
     want0 = np.asarray(cost0(Zs, Cs, alphas))
 
     Kt = torch.as_tensor(X @ X.T)
-    t_iterate, t_cost0 = trestarts._aa_grouped_iterate(
-        torch.as_tensor(X) if has_data else None, Kt,
-        weights_kwargs={'max_iterations': 25},
-        trace_K=None if has_data else torch.trace(Kt), **common)
+    t_iterate, t_cost0 = tsharded._aa_iterate(
+        torch.as_tensor(X) if has_data else None, Kt, n_components=K,
+        delta=delta, do_scale=delta != 0.0, sh=tsharded._Shard(device='cpu'),
+        dictionary_solver_kwargs={'max_iterations': 1},
+        weights_solver_kwargs={'backend': 'pallas', 'max_iterations': 25},
+        scale_factors_solver_kwargs={'max_iterations': 50},
+        trace_K=None if has_data else torch.trace(Kt))
     states = states_from_numpy(Zs, Cs, alphas, 'cpu', torch.float64)
     Z, C, alpha, costs = (t.numpy() for t in t_iterate(*states))
     np.testing.assert_allclose(t_cost0(*states).numpy(), want0, rtol=1e-12)
@@ -281,6 +279,23 @@ def test_public_fit_contract():
         weights_solver_kwargs=WEIGHTS_KW, restart_chunk=2,
         compact_iterations=8, **FIT)
     np.testing.assert_array_equal(again['costs'], res['costs'])
+
+
+@pytest.mark.parametrize("fit", ["aa", "kernel_aa", "gpnh"])
+def test_unknown_weights_backend_raises_before_any_iteration(fit):
+    """The restart runners resolve the weights QP's settings up front,
+    as the sharded fits do: an unknown backend raises before the first
+    iteration, naming the choices."""
+    X = torch.as_tensor(_data(2))
+    call = {'aa': trestarts.aa_fit_restarts,
+            'kernel_aa': trestarts.kernel_aa_fit_restarts,
+            'gpnh': trestarts.gpnh_fit_restarts}[fit]
+    before = profiling.RESTART_SLOTS
+    with pytest.raises(ValueError, match="unknown weights-QP backend "
+                       "'numba'; use 'xla', 'pallas' or 'auto'"):
+        call(X @ X.T if fit == 'kernel_aa' else X, K, 0, 2, init='random',
+             weights_solver_kwargs={'backend': 'numba'})
+    assert profiling.RESTART_SLOTS == before
 
 
 def test_scale_factors_fit_keeps_alpha_in_its_box():

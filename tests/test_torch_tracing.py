@@ -16,7 +16,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from convex_dim_red_tpu_torch import (ArchetypalAnalysis, aa_fit_restarts,
                                       gpnh_fit_restarts)
-from convex_dim_red_tpu_torch.ops import residual_cost, simplex_qp
+from convex_dim_red_tpu_torch.ops import (LAUNCH_COUNTERS, residual_cost,
+                                          simplex_qp)
 from convex_dim_red_tpu_torch.parallel import restarts
 from convex_dim_red_tpu_torch.utils import profiling
 
@@ -219,9 +220,10 @@ def test_counters_snapshot_names_every_counter():
     snap = profiling.counters()
     assert list(snap) == ["RESTART_SLOTS", "RESTART_ADVANCES",
                           "HOST_READS", "H2D_BYTES", "GRAPH_CAPTURES",
-                          "GRAPH_REPLAYS", "LAUNCHES",
-                          "PACKED_LAUNCHES", "GROUPED_LAUNCHES",
-                          "UNPACKED_LAUNCHES", "COST_LAUNCHES"]
+                          "GRAPH_REPLAYS"] + [
+                              name for _, _, name in LAUNCH_COUNTERS]
+    for module, attribute, name in LAUNCH_COUNTERS:
+        assert snap[name] == getattr(module, attribute)
     assert snap["LAUNCHES"] == simplex_qp.LAUNCHES
     assert snap["COST_LAUNCHES"] == residual_cost.LAUNCHES
     assert all(isinstance(v, int) for v in snap.values())

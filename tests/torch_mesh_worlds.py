@@ -67,28 +67,41 @@ def case_gram(X, shape):
 
 
 def case_train_step(X, states, shape):
-    from convex_dim_red_tpu_torch.models._common import (QPSolverConfig,
-                                                         SPGSolverConfig)
-    from convex_dim_red_tpu_torch.models.archetypal_analysis import (
-        _spg_cfg_to_quad_kwargs)
-    from convex_dim_red_tpu_torch.parallel import sharded_aa_train_step
-    from convex_dim_red_tpu_torch.parallel.restarts import (
-        _aa_grouped_iterate)
+    """One sharded train step and the single-device iterate from the
+    same states and settings; and the iterate's arguments as the train
+    step and the restart runner each pass them from those settings."""
+    from convex_dim_red_tpu_torch.parallel import (aa_fit_restarts,
+                                                   restarts, sharded_aa)
     Zs, Cs, alphas, _ = states
-    got = sharded_aa_train_step(_mesh(shape), X, Zs, Cs, alphas,
-                                dict_iterations=3, weights_iterations=20,
-                                weights_backend='xla')
+    passed = {}
+
+    def recording(caller, real):
+        def iterate(*args, sh, **kwargs):
+            passed[caller] = kwargs
+            return real(*args, sh=sh, **kwargs)
+        return iterate
+
+    real = sharded_aa._aa_iterate
+    sharded_aa._aa_iterate = recording('train step', real)
+    restarts._aa_iterate = recording('restart runner', real)
+    try:
+        got = sharded_aa.sharded_aa_train_step(
+            _mesh(shape), X, Zs, Cs, alphas, dict_iterations=3,
+            weights_iterations=20, weights_backend='xla')
+        aa_fit_restarts(X, np.shape(Zs)[-1], 0, 2, init='random',
+                        max_iterations=1,
+                        dictionary_solver_kwargs={'max_iterations': 3},
+                        weights_solver_kwargs={'backend': 'xla',
+                                               'max_iterations': 20},
+                        device=CPU)
+    finally:
+        sharded_aa._aa_iterate = restarts._aa_iterate = real
     Xt = torch.as_tensor(X)
-    iterate, _ = _aa_grouped_iterate(
-        Xt, Xt @ Xt.T, delta=0.0, do_scale=False, has_data=True,
-        dict_kwargs=_spg_cfg_to_quad_kwargs(
-            SPGSolverConfig(max_iterations=3)),
-        weights_backend='xla',
-        weights_kwargs=QPSolverConfig(max_iterations=20).kwargs(),
-        scale_kwargs=_spg_cfg_to_quad_kwargs(SPGSolverConfig()),
-        trace_K=None)
+    iterate, _ = real(Xt, Xt @ Xt.T, sh=sharded_aa._Shard(device=CPU),
+                      **passed['train step'])
     single = iterate(*(torch.as_tensor(a) for a in (Zs, Cs, alphas)))
-    return {'sharded': _np(got), 'single': _np(single)}
+    return {'sharded': _np(got), 'single': _np(single),
+            'iterate_kwargs': _np(passed)}
 
 
 def case_fit(kind, data, states, shape, delta=0.0, n_valid=None,

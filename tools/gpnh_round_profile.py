@@ -58,19 +58,19 @@ def round_runner(pcs, n_init):
     """``(states, run)``: the initial states of ``n_init`` restarts and
     ``run(states) -> (states, costs, done)`` for one round."""
     import torch
-    from convex_dim_red_tpu_torch.models._common import (QPSolverConfig,
-                                                         make_config)
     from convex_dim_red_tpu_torch.parallel import restarts
-    from convex_dim_red_tpu_torch.parallel.sharded_aa import _keep_best_loop
+    from convex_dim_red_tpu_torch.parallel.sharded_aa import (
+        _gpnh_iterate, _keep_best_loop, _Shard)
     fit = chip_smoke.GPNH_FIT
-    cfg = make_config(QPSolverConfig, fit['weights_solver_kwargs'])
     generator = torch.Generator(device=pcs.device).manual_seed(0)
     states = restarts._init_gpnh_state(
         generator, pcs, None, n_init, n_components=chip_smoke.GPNH_K,
         init='random', n_extra_steps=10)
-    iterate, cost0 = restarts._gpnh_grouped_iterate(
-        pcs, lambda_W=fit['lambda_W'], weights_backend='pallas',
-        weights_kwargs=cfg.kwargs(), n_components=chip_smoke.GPNH_K)
+    iterate, cost0 = _gpnh_iterate(
+        pcs, lambda_W=fit['lambda_W'], n_components=chip_smoke.GPNH_K,
+        sh=_Shard(device=pcs.device),
+        weights_solver_kwargs=dict(fit['weights_solver_kwargs'],
+                                   backend='pallas'))
 
     def run(states):
         states, costs, _, _, done = _keep_best_loop(
