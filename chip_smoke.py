@@ -45,7 +45,8 @@ the run with a non-zero exit and no result line:
    the device time of that slowest row launched alone (n = 1), the
    latency floor of a launch.
 5b. K5 (the fused residual cost) against its plain version in float64
-    and float32 at the benchmark's shape (25, 1788, 24030, k = 6) and
+    and float32 at the benchmark's shape (25, 1788, 24030, k = 6), on
+    its Gram's factor as the main path runs it (25, 1788, 1788, 6), and
     the JRA-55 PCs' (100, 732, 167, k = 4), its bits equal over two
     launches; its device time (CUDA graph of 20 launches), the plain
     version's, the ``C X`` product's and its bound.
@@ -856,21 +857,30 @@ def phase_small_fit():
           % (walls["cuda"], walls["cpu"], walls["estimator"]))
 
 
-#: K5's shapes: the benchmark's main path (25 restarts of the
-#: HadISST-scale data, 1788 x 24,030, k = 6) and the JRA-55 PC analyses'
-#: (100 restarts of 732 x 167, k = 4), where its restarts split into
-#: groups.
-K5_SHAPES = (("HadISST scale", RESTART_CHUNK, N_SAMPLES, 24030, K),
-             ("JRA-55 PCs", 100, 732, 167, 4))
+#: K5's shapes ``(label, R, n, d, k, factor)``: the benchmark's
+#: HadISST-scale data (25 restarts of 1788 x 24,030, k = 6) as the data
+#: and, as the main path runs it since the cost takes the Gram's factor
+#: where d > n, as its (1788, 1788) factor; and the JRA-55 PC analyses'
+#: (100 restarts of 732 x 167, k = 4, d < n: the data), where its
+#: restarts split into groups.
+K5_SHAPES = (("HadISST scale", RESTART_CHUNK, N_SAMPLES, 24030, K, False),
+             ("HadISST scale, Gram factor", RESTART_CHUNK, N_SAMPLES, 24030,
+              K, True),
+             ("JRA-55 PCs", 100, 732, 167, 4, False))
 
 
-def k5_operands(seed, R, n, d, k):
+def k5_operands(seed, R, n, d, k, factor=False):
     """K5's float32 operands as the AA iterate forms them: data of
-    ``make_data``'s model, ``C`` and ``Z`` on the simplex, ``CX = C X``
-    and ``alpha`` in [0.9, 1.1]; returns ``(X, Z, C, CX, alpha)``."""
+    ``make_data``'s model (with ``factor``, its Gram's (n, n) factor,
+    ``sharded_aa._gram_factor``), ``C`` and ``Z`` on the simplex, ``CX
+    = C X`` and ``alpha`` in [0.9, 1.1]; returns ``(X, Z, C, CX,
+    alpha)``."""
     import torch
+    from convex_dim_red_tpu_torch.parallel import sharded_aa
     rng = np.random.RandomState(seed)
     X = torch.as_tensor(make_data(n, d), device=DEVICE)
+    if factor:
+        X = sharded_aa._gram_factor(X)
     C = torch.as_tensor(rng.dirichlet(np.ones(n), size=(R, k)),
                         dtype=torch.float32, device=DEVICE)
     Z = torch.as_tensor(rng.dirichlet(np.ones(k), size=(R, n)),
@@ -886,13 +896,15 @@ def phase_k5():
     version's and the ``C X`` product's (the rest of the cost's span)
     the same way, the wrapper's (CUDA events), and the bound
     ``max(bytes / 3.35 TB/s, 2 R n d (k + 1) / 67 TFLOP/s)`` (X, Z, CX,
-    alpha read once, the sums written once).
-    Returns the numbers at the first shape."""
+    alpha read once, the sums written once; d = n on the Gram's factor).
+    Returns the numbers at the first shape, and at the factor's under
+    ``factor``."""
     import torch
     from convex_dim_red_tpu_torch.ops import residual_cost as rc
     out = {}
-    for seed, (label, R, n, d, k) in enumerate(K5_SHAPES):
-        X, Z, C, CX, alpha = k5_operands(seed, R, n, d, k)
+    for seed, (label, R, n, d, k, factor) in enumerate(K5_SHAPES):
+        X, Z, C, CX, alpha = k5_operands(seed, R, n, d, k, factor)
+        d = X.shape[1]
         args = (X, Z, CX, alpha)
         got = rc.residual_sq_sums(*args)
         again = rc.residual_sq_sums(*args)
@@ -924,14 +936,14 @@ def phase_k5():
                  1e3 * nbytes / HBM_BYTES_PER_S, flops,
                  1e3 * flops / PEAK_FLOPS["float32"], 100.0 * bound_ms / dev,
                  err, plain_err))
-        out.setdefault("times", dict(
+        out.setdefault("factor" if factor else "times", dict(
             shape=[R, n, d, k], device_ms=dev, ms=wrapper_ms,
             plain_ms=plain_ms, cx_gemm_ms=gemm_ms, bound_ms=bound_ms,
             share=bound_ms / dev, max_rel_err=err,
             plain_max_rel_err=plain_err))
         del X, Z, C, CX, alpha, args, plain, want
         torch.cuda.empty_cache()
-    return out["times"]
+    return dict(out["times"], factor=out["factor"])
 
 
 def audit_cost_f64(result, X32):
@@ -2679,7 +2691,8 @@ def mesh_rank(cases):
 def nccl_rank():
     """A world of one on NCCL: ``sharded_aa_fit`` over a (1 x 1) mesh and
     the single-device restart-grouped fit from the same four states, on
-    phase 7's data, cut to 10 iterations (K1 at (4, 1788, 6))."""
+    phase 7's data, cut to 10 iterations (K1 at (4, 1788, 6)), the
+    single-device cost on the data as the mesh's is."""
     import torch
     from convex_dim_red_tpu_torch.parallel import sharded_aa_fit
     from convex_dim_red_tpu_torch.parallel.dryrun import (random_states,
@@ -2697,9 +2710,17 @@ def nccl_rank():
                          stopping_criterion='rel_delta_f', **kw)
     launches = read_launches()
     mesh_backend = torch.distributed.get_backend()
-    costs, n_iters, single = single_aa_fit(
-        X, *states, device=DEVICE, weights_solver_kwargs=weights,
-        criterion='rel_delta_f', **kw)
+    # On one device the cost runs on the Gram's factor where d > n, on a
+    # mesh on the data: the bits compare on one form, the data's.
+    from convex_dim_red_tpu_torch.parallel import sharded_aa
+    gram_factor = sharded_aa._gram_factor
+    sharded_aa._gram_factor = lambda A: A.contiguous()
+    try:
+        costs, n_iters, single = single_aa_fit(
+            X, *states, device=DEVICE, weights_solver_kwargs=weights,
+            criterion='rel_delta_f', **kw)
+    finally:
+        sharded_aa._gram_factor = gram_factor
     best = int(np.argmin(costs))
     return dict(backend=mesh_backend, launches=launches,
                 costs=res['costs'], single_costs=costs,

@@ -10,10 +10,12 @@ chunk shape after its first as one replay of a CUDA graph of that
 iteration:
 
 - the first iteration of a shape runs eagerly, as it does without a
-  graph; the second is captured on a side stream, into the graph's own
-  memory pool, then replayed for its work; every later one of that
-  shape is a replay.  Each runs the same kernels on the same operands in
-  the same order, so the results are the eager loop's to the bit;
+  graph, and writes its states back into the ones it was given (a chunk
+  just gathered, which nothing reads again); the second is captured on
+  a side stream, into the graph's own memory pool, then replayed for
+  its work; every later one of that shape is a replay.  Each runs the
+  same kernels on the same operands in the same order, so the results
+  are the eager loop's to the bit;
 - the loop's carried tensors (the states, the cost, the frozen flags,
   the iteration counts) are the graph's inputs and outputs: a replay
   writes its results back into them, and :meth:`StepGraphs.gather`
@@ -38,8 +40,12 @@ the iterate says so (``iterate.reads_host`` false, as
 and on the CPU, :class:`StepGraphs` calls the iteration directly.  A
 host read inside a capture raises (``utils/profiling.host_read``).
 
-Memory: cuBLAS keeps a workspace for every stream it runs on, held in
-the caching allocator.  The capture stream's would be a second one, so
+Memory: the states written back after the first iteration become the
+graph's carried states, so the capture holds one set of a chunk's
+states where the eager loop, from its second iteration on, holds two
+(the gathered chunk and the last iteration's) besides the one it makes.
+cuBLAS keeps a workspace for every stream it runs on, held in the
+caching allocator.  The capture stream's would be a second one, so
 the workspaces are let go around the capture (as PyTorch's own graph
 trees do): the capture stream's is then taken inside the graph's pool,
 and the current stream's is taken again at its next GEMM.  The graphs
@@ -127,6 +133,16 @@ def _capture(step, carry):
     return graph, delta
 
 
+def _written_back(step, carry):
+    """``step(carry)`` with the new states copied into ``carry``'s
+    states, which are returned in their place: the given states are
+    read by this iteration alone, and the new ones go once copied."""
+    (states, *rest), delta = step(carry)
+    for given, new in zip(carry[0], states):
+        given.copy_(new)
+    return (carry[0], *rest), delta
+
+
 class _Slot:
     """The graph of one chunk shape: its carried tensors, its output of
     the cost deltas and the launches a replay adds."""
@@ -157,11 +173,12 @@ class StepGraphs:
 
     ``advance(step, carry)``, as ``sharded_aa._keep_best_loop`` calls
     it, returns ``step(carry)`` where :func:`capturable` says no (the
-    CPU, an iterate that reads the host) and for a shape's first
-    iteration; from its second on, the carried tensors advanced in place
-    by a replay, and the graph's cost deltas.  :meth:`gather` and
-    :meth:`own` keep the carried tensors the graph's own across the
-    chunks and rounds of a fit."""
+    CPU, an iterate that reads the host), and for a shape's first
+    iteration the same with its states written into ``carry``'s (which
+    the graph then carries); from its second on, the carried tensors
+    advanced in place by a replay, and the graph's cost deltas.
+    :meth:`gather` and :meth:`own` keep the carried tensors the graph's
+    own across the chunks and rounds of a fit."""
 
     def __init__(self, iterate):
         self._iterate = iterate
@@ -203,7 +220,7 @@ class StepGraphs:
         if slot.graph is None:
             if not slot.warm:
                 slot.warm = True
-                return step(carry)
+                return _written_back(step, carry)
             self._capture_slot(slot, step, carry)
         else:
             slot.load(carry)

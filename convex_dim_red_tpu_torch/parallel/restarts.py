@@ -300,19 +300,18 @@ def _compacted_best(R, states_all, *, max_iterations, restart_chunk,
 
 def _best_of_compacted(states, round_call, *, max_iterations,
                        restart_chunk, round_iterations, groups=None):
-    """:func:`_compacted_best` from the initial ``states`` (not
-    modified).  Returns ``((*best_state, trace, best_cost,
-    best_n_iter), costs, n_iters)``, ``costs`` and ``n_iters`` numpy
-    arrays over all restarts.  With ``groups`` (a
-    :class:`_RestartGroups`) each rank runs its block of ``states`` and
-    every rank returns the global result."""
+    """:func:`_compacted_best` from the initial ``states``, which the
+    population advances in (no copy of it is made).  Returns
+    ``((*best_state, trace, best_cost, best_n_iter), costs, n_iters)``,
+    ``costs`` and ``n_iters`` numpy arrays over all restarts.  With
+    ``groups`` (a :class:`_RestartGroups`) each rank runs its block of
+    ``states`` and every rank returns the global result."""
     if groups is not None:
         return _group_best_of_compacted(
             states, round_call, groups, max_iterations=max_iterations,
             restart_chunk=restart_chunk, round_iterations=round_iterations)
-    states_all = tuple(s.clone() for s in states)
     states_all, costs, n_iters, traces, best = _compacted_best(
-        states_all[0].shape[0], states_all, max_iterations=max_iterations,
+        states[0].shape[0], states, max_iterations=max_iterations,
         restart_chunk=restart_chunk, round_iterations=round_iterations,
         round_call=round_call)
     trace_b = (np.concatenate(traces[best]) if traces[best]
@@ -360,7 +359,8 @@ def _screened_best(states, round_call, *, max_iterations,
     (the JAX package's ``_screened_best``, for both families).
 
     Every restart runs at most ``screen_iterations`` iterations from
-    ``states`` (not modified).  The ``n_keep = max(1, ceil(screen_keep
+    ``states`` (advanced in place, as in :func:`_best_of_compacted`).
+    The ``n_keep = max(1, ceil(screen_keep
     R))`` lowest screened costs survive; the ``n_keep``-th is the cut,
     and with ``screen_margin`` every restart whose screened cost is at
     most the cut plus the margin survives too.  The survivors then run
@@ -393,10 +393,10 @@ def _screened_best(states, round_call, *, max_iterations,
                   round_iterations=_ROUND, round_call=round_call)
     if groups is None:
         screened, screen_costs, screen_iters, _, _ = _compacted_best(
-            R, tuple(s.clone() for s in states), **screen)
+            R, states, **screen)
     else:
         ids, R_loc = groups.block(R)
-        local = tuple(s[torch.as_tensor(ids, device=s.device)].clone()
+        local = tuple(s[torch.as_tensor(ids, device=s.device)]
                       for s in states)
         screen_costs = screen_iters = ()
         if len(ids):
@@ -443,9 +443,12 @@ def _best_of_restarts(iterate, cost0, states, *, tolerance, criterion,
                       screen_iterations, screen_keep, screen_margin,
                       groups=None):
     """The best restart of a population, from its initial ``states`` (a
-    tuple of tensors, the restart axis first; not modified), under a
-    family's ``iterate`` and ``cost0`` (``sharded_aa._aa_iterate`` or
+    tuple of tensors, the restart axis first), under a family's
+    ``iterate`` and ``cost0`` (``sharded_aa._aa_iterate`` or
     ``_gpnh_iterate`` on a :class:`sharded_aa._Shard` of one device).
+    The population advances in ``states``, with no copy of it (at the
+    HadISST scale a copy is 8.6 MB of the card's peak): a caller that
+    reads its initial states again passes copies.
 
     ``screen_iterations`` runs the screened scheduler
     (:func:`_screened_best`); otherwise :func:`_compacted_best` runs in
@@ -541,14 +544,8 @@ def _aa_restarts(X, gram, n_components, generator, n_init, *, has_data,
     k_fit, component_mask = _padded_components(k_out, pad_components_to)
     do_scale = float(delta) != 0.0
 
-    diss = dissimilarities_from_kernel(gram) if init == 'furthest_sum' \
-        else None
-    states = _init_aa_state(
-        generator, int(n_init), float(delta), n_samples=gram.shape[0],
-        n_components=k_fit, init=init, diss=diss,
-        n_extra_steps=int(n_extra_steps), do_scale=do_scale,
-        dtype=gram.dtype, device=gram.device,
-        component_mask=component_mask)
+    # The iterate first: building the cost's factor of the Gram needs the
+    # room that the initial states take.
     iterate, cost0 = _aa_iterate(
         X if has_data else None, gram, n_components=k_fit,
         delta=float(delta), do_scale=do_scale, sh=_Shard(device=X.device),
@@ -558,6 +555,15 @@ def _aa_restarts(X, gram, n_components, generator, n_init, *, has_data,
         trace_K=(None if has_data
                  else torch.trace(gram).to(_scalar_dtype(gram.dtype))),
         component_mask=component_mask)
+    diss = dissimilarities_from_kernel(gram) if init == 'furthest_sum' \
+        else None
+    states = _init_aa_state(
+        generator, int(n_init), float(delta), n_samples=gram.shape[0],
+        n_components=k_fit, init=init, diss=diss,
+        n_extra_steps=int(n_extra_steps), do_scale=do_scale,
+        dtype=gram.dtype, device=gram.device,
+        component_mask=component_mask)
+    del diss
     best, costs, n_iters, screen = _best_of_restarts(
         iterate, cost0, states, tolerance=float(tolerance),
         criterion=stopping_criterion, max_iterations=max_iterations,

@@ -27,7 +27,10 @@ and :func:`_gpnh_iterate`, are the ones the single-device restart
 runners of parallel/restarts.py run (with a :class:`_Shard` of no mesh,
 where every collective is the identity), so a sharded fit's cost
 trajectories agree with the single-device fit's up to reduction order,
-and a (1, 1) mesh gives its bits.
+and a (1, 1) mesh gives its bits.  On one device with more features
+than samples the residual-form cost runs on the Gram's factor
+(:func:`_gram_factor`): the same costs up to rounding, so there the
+(1, 1) mesh agrees to rounding and not to the bit.
 """
 
 import numpy as np
@@ -287,9 +290,75 @@ def _aa_pre_weights(K_loc, Z_loc, C, alpha, *, delta, do_scale,
     return C, alpha, A, B_w, CK, CKCt
 
 
+#: Features of the data cast to float64 at a time while
+#: :func:`_gram_factor` sums the Gram.
+_FACTOR_BLOCK = 512
+
+
+def _gram64(X, K):
+    """``X X'`` summed into ``K`` (n, n, float64) over blocks of
+    :data:`_FACTOR_BLOCK` features, one cast block live at a time; a
+    product of two float32 numbers is exact in float64."""
+    K.zero_()
+    for j in range(0, X.shape[1], _FACTOR_BLOCK):
+        block = X[:, j:j + _FACTOR_BLOCK].to(torch.float64)
+        K.addmm_(block, block.T)
+        del block
+    return K
+
+
+def _gram_factor(X):
+    """An (n, n) factor ``L`` of the Gram of ``X`` (n, d), ``L L' = X
+    X'``, in ``X``'s dtype and on its device.
+
+    For any ``A`` (here ``I - Z D C``), ``||A X||^2 = tr(A X X' A') =
+    ||A L||^2``, row by row too: the residual-form cost is the same sum
+    of squares on ``L`` as on ``X``, in a rotated basis, with d / n times
+    less work where d > n.  The Gram is summed in float64
+    (:func:`_gram64`; on a factor of the float32 Gram the cost was up to
+    4e-6 off) and factored in float64, in its own storage, by
+    Cholesky with its last pivot clamped at zero: the leading n - 1
+    rows by Cholesky, the last row by one triangular solve, its diagonal
+    ``sqrt(max(K_nn - |l|^2, 0))``.  That is Cholesky's factor where the
+    Gram is positive definite, and exact where it has rank n - 1 with a
+    positive definite leading minor, as the Gram of data centred per
+    feature (anomalies) has.  Where the leading minor is not positive
+    definite (duplicate rows, say), the factor is ``U
+    diag(sqrt(max(lambda, 0)))`` from the Gram's eigendecomposition,
+    whose workspace is several times the Gram's.  The float64 matrix is
+    column-major, so that the factorisations run in place.  One host
+    read (Cholesky's ``info``).  The span ``cdr.aa.gram_factor``; adds
+    one to ``profiling.GRAM_FACTORS``."""
+    n = X.shape[0]
+    with span("cdr.aa.gram_factor"):
+        K = _gram64(X, torch.empty((n, n), dtype=torch.float64,
+                                   device=X.device).mT)
+        last = K[-1].clone()
+        K[-1].zero_()
+        K[:, -1].zero_()
+        K[-1, -1] = 1.0
+        info = torch.empty((), dtype=torch.int32, device=X.device)
+        torch.linalg.cholesky_ex(K, out=(K, info))
+        if host_read(info) == 0:
+            knn = last[-1].clone()
+            last[-1] = 0.0
+            row = torch.linalg.solve_triangular(K, last[:, None],
+                                                upper=False)[:, 0]
+            row[-1] = (knn - row.dot(row)).clamp_min_(0.0).sqrt_()
+            K[-1] = row
+        else:
+            lam = torch.empty((n,), dtype=torch.float64, device=X.device)
+            torch.linalg.eigh(_gram64(X, K), out=(lam, K))
+            K.mul_(lam.clamp_min_(0.0).sqrt_())
+        L = torch.empty((n, n), dtype=X.dtype, device=X.device).copy_(K)
+    profiling.GRAM_FACTORS += 1
+    return L
+
+
 def _aa_iter_cost(X_loc, Z_loc, C, alpha, CK, CKCt, trace_K, sh):
     """The cost of each restart after its weights update: the residual
-    form ``0.5 ||Z D C X - X||^2 / n`` when the data rows ``X_loc`` are
+    form ``0.5 ||Z D C X - X||^2 / n`` when the data rows ``X_loc`` (or,
+    on one device, the Gram's factor from :func:`_gram_factor`) are
     given (reliable in float32; its sums of squares are K5's on the
     card, so no (R, n_loc, d) residual is formed there), the kernel
     trace form from ``trace_K`` otherwise.  The span ``cdr.aa.cost``."""
@@ -318,6 +387,9 @@ def _aa_iterate(X_loc, K_loc, *, n_components, delta, do_scale, sh,
     by :func:`_solver_kwargs` at ``n_components``.  ``X_loc`` (the
     rank's data rows, or None) selects the residual-form cost, else the
     kernel trace form from ``trace_K`` on the kernel rows ``K_loc``.
+    The residual form runs on ``X_loc`` itself on a mesh or where it has
+    no more features than rows; otherwise (on one device, d > n) on the
+    Gram's (n, n) factor (:func:`_gram_factor`), built here once a fit.
     ``component_mask`` (a padded fit) goes only to the weights QP, which
     pins the padded columns of ``Z`` to 0; the padded rows of ``C`` then
     get a zero gradient and do not reach the cost.
@@ -335,7 +407,12 @@ def _aa_iterate(X_loc, K_loc, *, n_components, delta, do_scale, sh,
         _solver_kwargs(n_components, sh.device, dictionary_solver_kwargs,
                        weights_solver_kwargs, scale_factors_solver_kwargs)
     if X_loc is not None:
-        X_loc = X_loc.contiguous()  # K5's operand; once, not an iteration
+        # K5's operand, once a fit: on one device with more features than
+        # samples the Gram's (n, n) factor, else the (n_loc, d) data.
+        n_loc, n_features = X_loc.shape
+        X_loc = (_gram_factor(X_loc)
+                 if sh.mesh is None and n_features > n_loc
+                 else X_loc.contiguous())
 
     def iterate(Zs, Cs, alphas):
         Cs, alphas, As, Bws, CKs, CKCts = _aa_pre_weights(

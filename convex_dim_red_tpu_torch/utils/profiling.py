@@ -16,10 +16,10 @@ tracing module.
   it.
 - The counters (:data:`RESTART_SLOTS`, :data:`RESTART_ADVANCES`,
   :data:`HOST_READS`, :data:`H2D_BYTES`, :data:`GRAPH_CAPTURES`,
-  :data:`GRAPH_REPLAYS`) are host integers, always on, added to where
-  the work happens and never read from the device, as
-  ``ops/simplex_qp.LAUNCHES`` is.  :func:`counters` takes a snapshot of
-  them and of the kernels' launch counts.
+  :data:`GRAPH_REPLAYS`, :data:`GRAM_FACTORS`) are host integers,
+  always on, added to where the work happens and never read from the
+  device, as ``ops/simplex_qp.LAUNCHES`` is.  :func:`counters` takes a
+  snapshot of them and of the kernels' launch counts.
 - :func:`block_and_time` times a call to its result on the card.
 """
 
@@ -33,7 +33,7 @@ import torch
 __all__ = ["span", "trace", "span_summary", "counters", "host_read",
            "to_device", "block_and_time", "RESTART_SLOTS",
            "RESTART_ADVANCES", "HOST_READS", "H2D_BYTES",
-           "GRAPH_CAPTURES", "GRAPH_REPLAYS"]
+           "GRAPH_CAPTURES", "GRAPH_REPLAYS", "GRAM_FACTORS"]
 
 #: Restart-iterations the device ran: every iteration of a batched
 #: restart loop adds the batch's width, tiled duplicates and restarts
@@ -60,6 +60,11 @@ GRAPH_CAPTURES = 0
 #: Restart-loop iterations run as a replay of such a graph: a fit's
 #: chunk-iterations less those that ran eagerly.
 GRAPH_REPLAYS = 0
+
+#: AA iterates whose residual-form cost runs on an (n, n) factor of the
+#: Gram in place of the (n, d) data (``parallel/sharded_aa._gram_factor``):
+#: one a fit on one device with more features than samples.
+GRAM_FACTORS = 0
 
 _enabled = torch._C._autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
@@ -110,15 +115,16 @@ def to_device(data, device):
 
 
 def counters():
-    """A snapshot of the port's counters: the six of this module and the
-    kernels' launch counts (``ops.LAUNCH_COUNTERS``), by name."""
+    """A snapshot of the port's counters: the seven of this module and
+    the kernels' launch counts (``ops.LAUNCH_COUNTERS``), by name."""
     from ..ops import LAUNCH_COUNTERS
     snap = {"RESTART_SLOTS": RESTART_SLOTS,
             "RESTART_ADVANCES": RESTART_ADVANCES,
             "HOST_READS": HOST_READS,
             "H2D_BYTES": H2D_BYTES,
             "GRAPH_CAPTURES": GRAPH_CAPTURES,
-            "GRAPH_REPLAYS": GRAPH_REPLAYS}
+            "GRAPH_REPLAYS": GRAPH_REPLAYS,
+            "GRAM_FACTORS": GRAM_FACTORS}
     snap.update((name, getattr(module, attribute))
                 for module, attribute, name in LAUNCH_COUNTERS)
     return snap

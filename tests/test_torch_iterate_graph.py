@@ -323,6 +323,43 @@ def test_step_graphs_gather_into_and_copy_out_of_the_carried_tensors(
     assert not torch.equal(c1, c2)
 
 
+def test_a_shapes_first_iteration_leaves_its_states_in_the_given_ones(
+        stand_in):
+    """The eager first iteration of a shape writes its new states into
+    the tensors it was given, and the graph captured next carries those:
+    the same values as the loop's, and no further set of states."""
+    X = _data(n=20, d=5, seed=8)
+    iterate, cost0 = sharded_aa._aa_iterate(
+        X, restarts._gram_once(X), n_components=3, delta=0.0,
+        do_scale=False, sh=sharded_aa._Shard(device='cpu'),
+        dictionary_solver_kwargs={'max_iterations': 1},
+        weights_solver_kwargs={'backend': 'pallas', 'max_iterations': 25})
+    states = restarts._init_aa_state(
+        torch.Generator().manual_seed(1), 4, 0.0, n_samples=20,
+        n_components=3, init='random', diss=None, n_extra_steps=0,
+        do_scale=False, dtype=X.dtype, device=X.device)
+
+    def step(carry):
+        return sharded_aa._keep_best_step(iterate, *carry, tolerance=1e-6,
+                                          criterion='rel_delta_f')
+
+    def start(states):
+        return (states, cost0(*states), torch.zeros(4, dtype=torch.bool),
+                torch.zeros(4, dtype=torch.int32))
+
+    want = [start(tuple(s.clone() for s in states))]
+    for _ in range(3):
+        want.append(step(want[-1])[0])
+    graphs = iterate_graph.StepGraphs(iterate)
+    carry = start(states)
+    for it in range(1, 4):   # eager, capture and replay, replay
+        carry, _ = graphs(step, carry)
+        assert all(c is s for c, s in zip(carry[0], states))
+        for got, expected in zip(iterate_graph._flat(carry),
+                                 iterate_graph._flat(want[it])):
+            assert torch.equal(got, expected)
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -422,12 +459,16 @@ def test_graphed_fit_takes_no_more_memory(cuda, monkeypatch):
     kw = dict(CARD, restart_chunk=25, compact_iterations=32)
 
     def peak(fn):
+        # The allocated bytes, and the bytes the tensors asked for (the
+        # former also count a cached block reused whole).
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
+        asked = torch.cuda.memory_stats()["requested_bytes.all.current"]
         torch.cuda.reset_peak_memory_stats()
         fn()
         torch.cuda.synchronize()
-        return torch.cuda.max_memory_allocated() - base
+        return (torch.cuda.max_memory_allocated() - base,
+                torch.cuda.memory_stats()["requested_bytes.all.peak"] - asked)
 
     def fit():
         aa_fit_restarts(X, 6, 4, 100, **kw)
@@ -437,4 +478,5 @@ def test_graphed_fit_takes_no_more_memory(cuda, monkeypatch):
     monkeypatch.setattr(restarts, "_round_run", _direct_round_run)
     fit()
     direct = peak(fit)
-    assert graphed <= direct + 2 ** 16, (graphed, direct)
+    assert graphed[0] <= direct[0] + 2 ** 16, (graphed, direct)
+    assert graphed[1] <= direct[1] + 2 ** 16, (graphed, direct)

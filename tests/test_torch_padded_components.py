@@ -257,8 +257,9 @@ def test_padded_aa_from_embedded_states_equals_unpadded(scheduler):
 
     best_r, costs_r, iters_r, screen_r = _run_aa(X, states, None,
                                                  scheduler)
-    best_p, costs_p, iters_p, screen_p = _run_aa(X, padded, mask,
-                                                 scheduler)
+    # The fit advances the states it is given; ``padded`` is read below.
+    best_p, costs_p, iters_p, screen_p = _run_aa(
+        X, tuple(s.clone() for s in padded), mask, scheduler)
     np.testing.assert_allclose(costs_p, costs_r, rtol=1e-10)
     np.testing.assert_array_equal(iters_p, iters_r)
     Z_r, C_r, _, trace_r, _, n_iter_r = best_r

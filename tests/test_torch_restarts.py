@@ -98,9 +98,9 @@ def jax_pallas_interpret():
             runner.cache_clear()
 
 
-def _jax_init_states(key, delta):
+def _jax_init_states(key, delta, n_samples=N):
     init = functools.partial(
-        jrestarts._init_aa_state, n_samples=N, n_components=K,
+        jrestarts._init_aa_state, n_samples=n_samples, n_components=K,
         init='random', diss=None, n_extra_steps=10, component_mask=None,
         do_scale=delta != 0.0, dtype=jnp.float64)
     keys = jax.random.split(key, N_INIT)
@@ -186,6 +186,44 @@ def test_one_shot_fit_matches_jax(jax_pallas_interpret, max_iterations,
             got['cost_deltas'], got['cost'], got['n_iter'])
     _assert_matches(best, got['costs'], got['n_iters'], want,
                     max_iterations)
+
+
+def test_wide_fit_on_the_gram_factor_matches_jax(jax_pallas_interpret):
+    """Data with more features than samples, whose cost the port runs on
+    the Gram's factor and the JAX package on the data: the compacted fit
+    of :func:`test_compacted_fit_matches_jax` from JAX's states, with the
+    same stops, winner and costs."""
+    rng = np.random.RandomState(5)
+    n, d = 24, 64
+    Z = rng.dirichlet(np.ones(K), size=n)
+    X = Z @ rng.uniform(size=(K, d)) + 0.01 * rng.standard_normal((n, d))
+    key = jax.random.PRNGKey(2)
+    want = jrestarts.aa_fit_restarts(
+        X, K, key, N_INIT, init='random', dictionary_solver_kwargs=DICT_KW,
+        weights_solver_kwargs=WEIGHTS_KW, restart_chunk=4,
+        compact_iterations=20, **FIT)
+
+    states = states_from_numpy(*_jax_init_states(key, 0.0, n_samples=n),
+                               device='cpu', dtype=torch.float64)
+    before = profiling.GRAM_FACTORS
+    Xt = torch.as_tensor(X)
+    iterate, cost0 = tsharded._aa_iterate(
+        Xt, trestarts._gram_once(Xt), n_components=K, delta=0.0,
+        do_scale=False, sh=tsharded._Shard(device='cpu'),
+        dictionary_solver_kwargs=DICT_KW, weights_solver_kwargs=WEIGHTS_KW)
+    assert profiling.GRAM_FACTORS - before == 1
+    best, costs, n_iters, _ = trestarts._best_of_restarts(
+        iterate, cost0, states, tolerance=FIT['tolerance'],
+        criterion=FIT['stopping_criterion'],
+        max_iterations=FIT['max_iterations'], restart_chunk=4,
+        compact_iterations=20, screen_iterations=None, screen_keep=None,
+        screen_margin=None)
+    np.testing.assert_allclose(costs, want['costs'], rtol=1e-8)
+    np.testing.assert_array_equal(n_iters, want['n_iters'])
+    assert int(np.argmin(costs)) == want['best_index']
+    np.testing.assert_allclose(best[0].numpy(), np.asarray(want['weights']),
+                               rtol=0, atol=1e-6)
+    assert best[5] == want['n_iter']
 
 
 @pytest.mark.parametrize("restart_chunk", [None, 4])

@@ -220,7 +220,7 @@ def test_counters_snapshot_names_every_counter():
     snap = profiling.counters()
     assert list(snap) == ["RESTART_SLOTS", "RESTART_ADVANCES",
                           "HOST_READS", "H2D_BYTES", "GRAPH_CAPTURES",
-                          "GRAPH_REPLAYS"] + [
+                          "GRAPH_REPLAYS", "GRAM_FACTORS"] + [
                               name for _, _, name in LAUNCH_COUNTERS]
     for module, attribute, name in LAUNCH_COUNTERS:
         assert snap[name] == getattr(module, attribute)

@@ -6,7 +6,7 @@ Usage, from the root of a checkout on a machine with the GPU, PyTorch
 built for CUDA and ``nvcc``::
 
     python3 tools/aa_round_breakdown.py [--seeds 1,2,3] [--requests N]
-        [--phases fit,transform] [--repo PATH] [--out FILE]
+        [--phases fit,transform,memory] [--repo PATH] [--out FILE]
 
 The workloads are the benchmark's: the configuration
 ``port_bench/configs/hadisst_scale.json`` (1788 months x 24,030 points,
@@ -21,7 +21,9 @@ For each seed, after a warm-up fit of 2 iterations:
    the device ran and those that advanced a restart, the host reads,
    the host-to-device bytes, K1's launches, and the chunk-iterations
    captured as a CUDA graph and replayed (``GRAPH_CAPTURES``,
-   ``GRAPH_REPLAYS``, printed again on their own);
+   ``GRAPH_REPLAYS``), the iterates whose cost ran on the Gram's factor
+   (``GRAM_FACTORS``) and K5's launches (``COST_LAUNCHES``), these four
+   printed again on their own;
 2. one fit under ``torch.profiler`` (CPU and CUDA activity), timed the
    same way, and ``profiling.span_summary`` of its trace: for each
    ``cdr.*`` span its count, host and self time, the device time it
@@ -30,7 +32,17 @@ For each seed, after a warm-up fit of 2 iterations:
    iteration's inner spans (``cdr.aa.*``) cover only its eager
    iterations and the capture; the replays' device time a
    chunk-iteration (``cdr.restarts.replay``) is printed beside them,
-   with the capture's host time (``capture_host_ms``).
+   with the capture's host time (``capture_host_ms``) and the factor's
+   build (``gram_factor``: the span ``cdr.aa.gram_factor``'s count,
+   host and device time).
+
+With ``memory`` among the phases, one more fit a seed runs under
+``torch.cuda.memory``'s allocation history: the peak of
+``max_memory_allocated`` above what was allocated before the fit, the
+allocations live at that peak by the port's frame that made them, and
+the peak over the allocations made inside each of ``MEMORY_STEPS`` (the
+initial states, the iterate's construction and the factor, the rounds,
+a capture, the cost).
 
 Then the transform (``--phases`` names the phases that run): the
 set-up fit (the mix's arguments, ``random_state`` the first seed),
@@ -143,7 +155,8 @@ def fit_phase(port, profiling, X, args, seed, chunk):
            "step_ms": 1e3 * wall / launches if launches else None,
            "useful_from_launches_pct": (100.0 * iters / (chunk * launches)
                                         if launches else None)}
-    for name in ("GRAPH_CAPTURES", "GRAPH_REPLAYS"):
+    for name in ("GRAPH_CAPTURES", "GRAPH_REPLAYS", "GRAM_FACTORS",
+                 "COST_LAUNCHES"):
         out[name] = cnt.get(name)
     if "RESTART_SLOTS" in cnt and cnt["RESTART_SLOTS"]:
         out["useful_slot_pct"] = (100.0 * cnt["RESTART_ADVANCES"]
@@ -162,6 +175,10 @@ def fit_phase(port, profiling, X, args, seed, chunk):
         capture = spans.get("cdr.restarts.capture")
         out["capture_host_ms"] = (1e3 * capture["host_s"]
                                   if capture else None)
+        factor = spans.get("cdr.aa.gram_factor")
+        out["gram_factor"] = (None if factor is None else {
+            "count": factor["count"], "host_ms": 1e3 * factor["host_s"],
+            "device_ms": 1e3 * factor["device_total_s"]})
         it = spans.get("cdr.restarts.iteration")
         if it and table["busy_s"]:
             out["iteration_share_of_busy_pct"] = (
@@ -169,6 +186,86 @@ def fit_phase(port, profiling, X, args, seed, chunk):
             out["busy_per_iteration_ms"] = 1e3 * table["busy_s"] / (
                 it["count"])
     return out
+
+
+#: The functions whose allocations :func:`memory_phase` reports the peak
+#: of, each over the allocations made while it ran (its own and its
+#: callees'): the initial states, the iterate's construction and the
+#: Gram's factor, the rounds, a chunk-iteration's capture, and the cost.
+MEMORY_STEPS = ("_init_aa_state", "_aa_iterate", "_gram_factor",
+                "_keep_best_loop", "_capture", "_aa_iter_cost")
+
+
+def _package_frame(frames):
+    """The innermost of ``frames`` in the port's package, as
+    ``file:line function``, or None."""
+    for f in frames:
+        name = f.get("filename", "")
+        if "convex_dim_red_tpu_torch" in name:
+            return "%s:%d %s" % (name.split("convex_dim_red_tpu_torch/")[-1],
+                                 f.get("line", 0), f.get("name", ""))
+    return None
+
+
+def memory_phase(port, X, args, seed):
+    """One fit under ``torch.cuda.memory``'s history: the peak of
+    ``max_memory_allocated`` over the fit above what was allocated
+    before it, the allocations live at the peak by the innermost frame
+    of the port that made them, the frames of the allocation that
+    reached it, and the peak over the allocations made inside each of
+    :data:`MEMORY_STEPS`."""
+    import torch
+    k = args["n_components"]
+    rest = {a: v for a, v in args.items()
+            if a not in ("n_components", "n_init")}
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.memory._record_memory_history(
+        enabled="all", context="all", stacks="python", max_entries=4000000)
+    try:
+        port.aa_fit_restarts(X, k, seed, args["n_init"], **rest)
+        sync()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    peak = torch.cuda.max_memory_allocated()
+    live, total, top, top_at = {}, 0, 0, None
+    steps = dict.fromkeys(MEMORY_STEPS, 0)
+    events = snap["device_traces"][torch.cuda.current_device()]
+    for i, e in enumerate(events):
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+            total += e["size"]
+            names = {f.get("name") for f in e.get("frames", ())}
+            for s in steps:
+                if s in names:
+                    steps[s] = max(steps[s], total)
+            if total > top:
+                top, top_at = total, i
+        elif e["action"] == "free_requested" and e["addr"] in live:
+            total -= live.pop(e["addr"])["size"]
+    at_peak = {}
+    live = {}
+    for e in events[:top_at + 1 if top_at is not None else 0]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+        elif e["action"] == "free_requested":
+            live.pop(e["addr"], None)
+    for e in live.values():
+        label = _package_frame(e.get("frames", ())) or "outside the port"
+        at_peak[label] = at_peak.get(label, 0) + e["size"]
+    reached = events[top_at] if top_at is not None else {}
+    return {"phase": "memory", "seed": seed, "before_fit_bytes": base,
+            "peak_bytes": peak, "peak_over_before_bytes": peak - base,
+            "traced_peak_over_before_bytes": top, "events": len(events),
+            "live_at_peak": sorted(at_peak.items(), key=lambda t: -t[1]),
+            "peak_reached_in": [
+                "%s:%d %s" % (f.get("filename", "").split("/")[-1],
+                              f.get("line", 0), f.get("name", ""))
+                for f in reached.get("frames", ())
+                if "convex_dim_red_tpu_torch" in f.get("filename", "")],
+            "step_peaks_over_before_bytes": steps}
 
 
 def transform_phase(port, profiling, data, config, seeds, n_requests):
@@ -268,6 +365,9 @@ def main(argv=None):
                                  int(fit_args["restart_chunk"])))
         short = {k: v for k, v in results[-1].items() if k != "spans"}
         print(json.dumps(short), flush=True)
+    for seed in seeds if "memory" in phases else ():
+        results.append(memory_phase(port, X, fit_args, seed))
+        print(json.dumps(results[-1]), flush=True)
     del X
     torch.cuda.empty_cache()
     if "transform" in phases:
